@@ -24,6 +24,9 @@ PL005   sink prefixes must not overlap each other, any source log prefix
         carry blob as a persisted window)
 ======  ====================================================================
 
+PL001 and PL002 read windowed record stages; an array (batch) program
+has none, so only PL005 applies to it, as in the reference.
+
 The port lowers single-stage, single-side programs only, so the
 reference's PL003 (group-mode capacity), PL004 (watermark wiring across
 edges and join sides) and PL006 (carry donation; the port updates its
@@ -81,12 +84,18 @@ def collision_probability(n_keys: int, bits: int = RAW_KEY_BITS) -> float:
     return -math.expm1(-n_keys * (n_keys - 1) / 2.0 / float(1 << bits))
 
 
+def _record_stages(built) -> list:
+    """Windowed record stages — the ones with a carry ring (array
+    pipelines have no window)."""
+    return [st for st in built.stages if st.window is not None]
+
+
 def _check_ring_slots(built, out: list) -> None:
     """PL001 — a config below the slot floor cannot survive a sustained
     stream: the watermark trails the newest window by the full span, so
     eventually two live windows share a modular slot and ``slot_for``
     raises mid-batch with the job already admitted."""
-    for st in built.stages:
+    for st in _record_stages(built):
         w = st.window
         if w.is_session:
             if st.n_slots < 2:
@@ -116,7 +125,7 @@ def _check_hash_collisions(built, out: list) -> None:
     if built.key_space != "hashed":
         return
     seen: set[int] = set()
-    for st in built.stages:
+    for st in _record_stages(built):
         n = st.num_buckets
         if n in seen:
             continue
@@ -185,14 +194,16 @@ def check_plan(built, *, source_prefixes=()) -> list:
 
 def _describe_stage(built, st) -> str:
     w = st.window
-    if w.is_session:
+    if w is None:
+        shape = "array"
+    elif w.is_session:
         shape = f"session(gap={w.gap})"
     elif w.slide:
         shape = f"sliding({w.size}/{w.slide})"
     else:
         shape = f"tumbling({w.size})"
     need = ""
-    if not w.is_session:
+    if w is not None and not w.is_session:
         need = (f" (min "
                 f"{min_slots_required(w.size, w.slide, st.allowed_lateness)})")
     sides = "+".join(sp.name for sp in st.sides)

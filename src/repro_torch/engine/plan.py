@@ -18,9 +18,16 @@ float32 carry on ``device``, folded once per micro-batch by
 the fused fold (``kernels/fused_fold``: a hand-written CUDA kernel for
 CUDA tensors, its plain PyTorch version for CPU tensors).  That is the
 carry layout of the reference's ``backend="pallas"``, so checkpoints move
-between the two packages unchanged.  Batch plans, group mode and the
-simulated-worker and multi-process backends are not ported yet; asking
-for them raises ``NotImplementedError`` naming the ``ROADMAP.md`` item.
+between the two packages unchanged.
+
+A batch plan (``window=None``) compiles with its map UDF to a
+``CompiledBatchPlan``: ``run(shards)`` applies the UDF to each worker's
+shard, as the reference's ``vmap`` does, and combines every worker's
+records in one ``hash_combine`` launch (``engine.stages``).  Its result
+has the shape the reference's ``backend="vmap"`` gives.  Group mode and
+the simulated-worker and multi-process backends are not ported yet;
+asking for them raises ``NotImplementedError`` naming the ``ROADMAP.md``
+item.
 """
 
 from __future__ import annotations
@@ -77,24 +84,34 @@ class KeySpace:
 
     ``dense`` — keys already are bucket ids (the data layer assigned them).
     ``hashed`` — keys come from an open domain and are folded in with
-    ``device_hash``; distinct keys may collide (the coordinator's host-side
-    label table counts collisions exactly).
+    ``device_hash``; distinct keys may collide.  Streaming plans count
+    collisions in the coordinator's host-side label table; batch plans
+    with ``track_collisions`` count them exactly per bucket on the device
+    (``ShuffleStats.bucket_collisions``).
     """
 
     num_buckets: int
     mode: str = "dense"             # "dense" | "hashed"
+    track_collisions: bool = True
 
     @classmethod
     def dense(cls, num_buckets: int) -> "KeySpace":
         return cls(num_buckets, "dense")
 
     @classmethod
-    def hashed(cls, num_buckets: int) -> "KeySpace":
-        return cls(num_buckets, "hashed")
+    def hashed(cls, num_buckets: int,
+               track_collisions: bool = True) -> "KeySpace":
+        return cls(num_buckets, "hashed", track_collisions)
 
     @property
     def is_hashed(self) -> bool:
         return self.mode == "hashed"
+
+    def padded(self, n_workers: int) -> int:
+        """Bucket space padded to a multiple of the worker count, so the
+        reference's tiled scatter divides it evenly; pad rows stay zero
+        (unless a dense key lands in them)."""
+        return -(-self.num_buckets // n_workers) * n_workers
 
 
 @dataclass(frozen=True)
@@ -150,13 +167,17 @@ class ReduceSpec:
     channels (count, sum and mean all come out of the carried pair);
     ``top_k`` is the same fold plus a fixed-capacity heavy-hitters
     selection at finalization (``k`` bounds it, ``reduce_fn`` names the
-    ranking kind).  ``group`` mode and shared join carries (the kernel
-    already honours a channel offset) are not ported yet.
+    ranking kind).  ``combine_fn`` is a batch plan's combiner
+    (``stages.resolve_combine_fn``: ``None`` and ``"pallas"`` name the
+    ``hash_combine`` kernel); the streaming fold is its own combiner.
+    ``group`` mode and shared join carries (the kernel already honours a
+    channel offset) are not ported yet.
     """
 
     mode: str = "aggregate"         # "aggregate" | "top_k" ("group": later)
     reduce_fn: str | Callable = "sum"
     k: int = 0                      # top_k mode: selection capacity
+    combine_fn: str | Callable | None = None
 
     @classmethod
     def top_k(cls, k: int) -> "ReduceSpec":
@@ -166,9 +187,10 @@ class ReduceSpec:
 @dataclass(frozen=True)
 class ExecutionPlan:
     """One device MapReduce job, declaratively.  ``compile()`` lowers it.
-    ``n_workers`` is kept for parity with the reference's plans and is
-    ignored: the fused fold runs over the whole flat carry with no worker
-    axis until the ``vmap``/``shard_map`` slice (ROADMAP Queue A #11)."""
+    A batch plan has ``n_workers`` worker shards and pads its bucket space
+    to a multiple of it.  A streaming plan ignores it: the fused fold runs
+    over the whole flat carry with no worker axis until the
+    ``vmap``/``shard_map`` slice (ROADMAP Queue A #11)."""
 
     key_space: KeySpace
     reduce: ReduceSpec
@@ -176,9 +198,12 @@ class ExecutionPlan:
     window: WindowSpec | None = None
 
     def compile(self, map_fn: Callable | None = None, *,
-                backend: str = BACKEND, device="cuda"
-                ) -> "CompiledStreamAggregate":
-        """Lower a windowed aggregate (or top-k) plan onto ``device``."""
+                backend: str = BACKEND, device="cuda", finalize: bool = True
+                ) -> "CompiledStreamAggregate | CompiledBatchPlan":
+        """Lower the plan onto ``device``: a batch plan (``window=None``)
+        with its map UDF to a ``CompiledBatchPlan``, a windowed aggregate
+        (or top-k) plan to a ``CompiledStreamAggregate``.  ``finalize``
+        (batch only) gathers the workers' bucket slices into one vector."""
         rs = self.reduce
         if backend in _UNPORTED_BACKENDS:
             raise not_ported(f"backend={backend!r}",
@@ -186,18 +211,32 @@ class ExecutionPlan:
         if backend != BACKEND:
             raise ValueError(f"unknown backend {backend!r} (the port has "
                              f"{BACKEND!r})")
-        if self.window is None:
-            raise not_ported("batch plans (window=None)",
-                             "Queue A #9 (batch plans + hash_combine)")
         if rs.mode == "group":
-            raise not_ported("group-mode reduction", "Queue A #8 (group mode)")
+            what = "group-mode reduction" if self.window is not None \
+                else "group-mode array reduction"
+            raise not_ported(what, "Queue A #8 (group mode)")
         if rs.mode not in ("aggregate", "top_k"):
             raise ValueError(f"unknown reduce mode {rs.mode!r}")
+        if rs.mode == "top_k" and rs.k < 1:
+            raise ValueError("top_k mode needs k >= 1")
+        if self.window is None:
+            if map_fn is None:
+                raise ValueError("batch plans need a map_fn")
+            if rs.mode == "top_k" and not finalize:
+                raise ValueError("batch top_k selects over the finalized "
+                                 "bucket vector; finalize=False is "
+                                 "contradictory")
+            if rs.mode == "top_k" and rs.k > self.key_space.num_buckets:
+                raise ValueError("top_k k exceeds the bucket space")
+            stages.resolve_combine_fn(rs.combine_fn)    # validate early
+            return CompiledBatchPlan(self, map_fn, resolve_device(device),
+                                     finalize)
         if map_fn is not None:
             raise ValueError("the fused fold decodes the standard wire "
                              "in-kernel; a custom map_fn does not apply")
-        if rs.mode == "top_k" and rs.k < 1:
-            raise ValueError("top_k mode needs k >= 1")
+        if rs.combine_fn is not None:
+            raise ValueError("the fused fold is already the combiner; "
+                             "combine_fn does not apply to windowed plans")
         if self.window.is_session:
             if self.window.gap <= 0:
                 raise ValueError("session windows need a positive gap")
@@ -207,6 +246,86 @@ class ExecutionPlan:
         if self.window.fanout_on_device and self.window.size <= 0:
             raise ValueError("on-device fan-out needs a positive window size")
         return CompiledStreamAggregate(self, resolve_device(device))
+
+
+# ---------------------------------------------------------------------------
+# Batch lowering (one-shot jobs)
+# ---------------------------------------------------------------------------
+
+def map_shards(shards: torch.Tensor, map_fn, n_workers: int):
+    """The UDF on each worker's shard, its ``(keys, values, valid)``
+    outputs concatenated over the workers — the combine's input.  The UDF
+    sees one worker's shard at a time, as under the reference's ``vmap``,
+    so a UDF that is not row-wise behaves the same."""
+    if shards.dim() < 1 or shards.shape[0] != n_workers:
+        raise ValueError(f"expected {n_workers} worker shards along axis 0, "
+                         f"got data of shape {tuple(shards.shape)}")
+    outs = [map_fn(shards[w]) for w in range(n_workers)]
+    return (torch.cat([k.reshape(-1) for k, _, _ in outs]),
+            torch.cat([v for _, v, _ in outs]),
+            torch.cat([ok.reshape(-1) for _, _, ok in outs]).to(torch.bool))
+
+
+def _batch_body(shards: torch.Tensor, *, plan: ExecutionPlan, map_fn,
+                finalize: bool):
+    """Map every worker's shard, then one aggregating shuffle over all of
+    their records.  Returns ``(result, ShuffleStats)`` shaped as the
+    reference's ``vmap`` backend returns them: the padded bucket vector
+    (``finalize``), or its ``(n_workers, padded / n_workers, ...)``
+    per-worker slices."""
+    ks, rs, n_workers = plan.key_space, plan.reduce, plan.n_workers
+    keys, values, valid = map_shards(shards, map_fn, n_workers)
+    raw = keys.to(torch.int32)
+    buckets = stages.bucketize(raw, ks.num_buckets, hashed=ks.is_hashed)
+    collisions = None
+    if ks.is_hashed and ks.track_collisions:
+        distinct = stages.distinct_keys_per_bucket(raw, valid,
+                                                   ks.num_buckets)
+        collisions = torch.clamp(distinct - 1, min=0)
+    padded = ks.padded(n_workers)
+    agg = stages.shuffle_aggregate(buckets, values, padded, valid=valid,
+                                   combine_fn=rs.combine_fn)
+    stats = stages.ShuffleStats(
+        torch.sum(valid, dtype=torch.int32),
+        torch.zeros((), dtype=torch.int32, device=agg.device), collisions)
+    if finalize:
+        return agg, stats
+    return agg.reshape((n_workers, padded // n_workers)
+                       + tuple(agg.shape[1:])), stats
+
+
+class CompiledBatchPlan:
+    """One-shot lowering: ``run(shards) -> (result, ShuffleStats)``.
+
+    ``shards`` is ``(n_workers, ...)``: a tensor, or a numpy array copied
+    once to the plan's device.  The aggregate result is the padded dense
+    bucket vector (``finalize=True``) or the per-worker slices of it; a
+    top-k plan returns ``(bucket_ids, values, valid)`` of length ``k``
+    over the unpadded vector.  Results and stats stay on the device.
+    """
+
+    def __init__(self, plan: ExecutionPlan, map_fn: Callable,
+                 device: torch.device, finalize: bool):
+        self.plan = plan
+        self.map_fn = map_fn
+        self.device = device
+        self.finalize = finalize
+
+    def run(self, data):
+        """Run the job once over ``data``'s worker shards."""
+        if isinstance(data, torch.Tensor):
+            shards = data.to(self.device)
+        else:
+            shards = torch.from_numpy(np.ascontiguousarray(data)).to(
+                self.device)
+        out, stats = _batch_body(shards, plan=self.plan, map_fn=self.map_fn,
+                                 finalize=self.finalize)
+        rs = self.plan.reduce
+        if rs.mode == "top_k":
+            kind = rs.reduce_fn if isinstance(rs.reduce_fn, str) else "sum"
+            out = stages.top_k_buckets(out[:self.plan.key_space.num_buckets],
+                                       rs.k, kind)
+        return out, stats
 
 
 # ---------------------------------------------------------------------------

@@ -1,22 +1,36 @@
-"""Key hashing and heavy-hitter selection for the streaming engine.
+"""Key hashing, the aggregating shuffle and heavy-hitter selection.
 
-The part of the reference's stage library the streaming aggregate path
-needs: host and device key folding (``fold_key24`` → ``device_hash`` /
-``host_bucket``, bit-identical to one another and to the reference) and
-the fixed-capacity top-k over one finalized window's dense aggregate.
-The window fan-out and the scatter-accumulate live in the fused fold
-kernel (``kernels/fused_fold``); the shuffle, group-mode and handoff
-stages of the reference are queued in ``ROADMAP.md``.
+The part of the reference's stage library the ported paths need: host
+and device key folding (``fold_key24`` → ``device_hash`` /
+``host_bucket``, bit-identical to one another and to the reference); the
+batch plans' aggregating shuffle — the Mapper's combiner
+(``local_combine_dense``, the ``hash_combine`` kernel) with exact
+per-bucket collision accounting for hashed key spaces
+(``distinct_keys_per_bucket``); and the fixed-capacity top-k over a
+dense aggregate.  The streaming window fan-out and scatter-accumulate
+live in the fused fold kernel (``kernels/fused_fold``); the group-mode
+and handoff stages of the reference are queued in ``ROADMAP.md``.
+
+The reference runs these stages once per worker under ``vmap`` or
+``shard_map`` and finishes with a collective.  The port runs them once
+over every worker's records on one device: a sum of per-worker sums is
+one sum, so the combine plus ``psum_scatter`` is one combine, and the
+owner-routed distinct-key exchange is one global ``torch.unique``.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 import torch
 
 from ..kernels.fused_fold.ref import murmur32
+from ..kernels.hash_combine import ops as hash_combine
 
 #: raw hashed-key ids must survive the float32 wire exactly
 RAW_KEY_BITS = 24
+#: the reference's invalid-key sentinel in its distinct-key exchange
+INT32_MAX = 2 ** 31 - 1
 
 
 def device_hash(keys: torch.Tensor) -> torch.Tensor:
@@ -33,6 +47,83 @@ def bucketize(keys: torch.Tensor, num_buckets: int, *,
     if hashed:
         return (device_hash(keys) % num_buckets).to(torch.int32)
     return keys
+
+
+# ---------------------------------------------------------------------------
+# Local combine (the Mapper's sort+combiner, §III-A.3) and the shuffle
+# ---------------------------------------------------------------------------
+
+def local_combine_dense(keys: torch.Tensor, values: torch.Tensor,
+                        num_buckets: int,
+                        valid: torch.Tensor | None = None) -> torch.Tensor:
+    """Combine records into a dense per-bucket sum (``(num_buckets,)`` or
+    ``(num_buckets, D)``), born sorted by bucket id: the ``hash_combine``
+    kernel on CUDA tensors, its plain version on CPU tensors.  Keys
+    outside ``[0, num_buckets)`` and invalid rows are dropped."""
+    return hash_combine.combine(keys, values, num_buckets, valid)
+
+
+def resolve_combine_fn(combine_fn):
+    """Resolve a combiner spec to a callable: ``None`` and ``"pallas"``
+    (the reference's name for its kernel) both name the ``hash_combine``
+    kernel here; a callable ``combine_fn(keys, values, num_buckets,
+    valid)`` passes through."""
+    if combine_fn is None or combine_fn == "pallas":
+        return local_combine_dense
+    if callable(combine_fn):
+        return combine_fn
+    raise ValueError(f"combine_fn must be None, 'pallas' or a callable, "
+                     f"got {combine_fn!r}")
+
+
+def shuffle_aggregate(keys: torch.Tensor, values: torch.Tensor,
+                      num_buckets: int, valid: torch.Tensor | None = None,
+                      combine_fn=None) -> torch.Tensor:
+    """Aggregating shuffle over every worker's records at once: the
+    combiner's dense ``(num_buckets, ...)`` sum.  Worker ``w`` of the
+    reference owns the contiguous slice ``[w * per, (w + 1) * per)`` of
+    it, which is what its ``psum_scatter`` hands out."""
+    return resolve_combine_fn(combine_fn)(keys, values, num_buckets, valid)
+
+
+@dataclass(frozen=True)
+class ShuffleStats:
+    """Accounting of one batch run, the analogue of the paper's
+    bytes_in/bytes_out: ``sent`` valid records, ``dropped`` records (0: the
+    aggregating shuffle never drops), and for hashed key spaces with
+    collision tracking ``bucket_collisions`` — per bucket, how many
+    *extra* distinct raw keys share it (``distinct - 1``, at least 0).
+    Tensors on the run's device."""
+
+    sent: torch.Tensor
+    dropped: torch.Tensor
+    bucket_collisions: torch.Tensor | None = None
+
+    @property
+    def collisions(self):
+        """Total colliding-key count over all buckets (0 when
+        untracked)."""
+        if self.bucket_collisions is None:
+            return 0
+        return torch.sum(self.bucket_collisions)
+
+
+def distinct_keys_per_bucket(raw_keys: torch.Tensor,
+                             valid: torch.Tensor | None,
+                             num_buckets: int) -> torch.Tensor:
+    """Exact global per-bucket distinct-raw-key counts over the valid
+    records of every worker, as int32 ``(num_buckets,)``; the reference's
+    ``distinct_keys_per_bucket`` computes the same counts with a
+    dedupe-and-route exchange that cannot drop.  ``INT32_MAX`` is the
+    reference's invalid sentinel, so a raw key of that value is not
+    counted there either."""
+    raw = raw_keys.to(torch.int32)
+    keep = raw != INT32_MAX
+    if valid is not None:
+        keep = keep & valid.to(torch.bool)
+    uniq = torch.unique(raw[keep])
+    buckets = bucketize(uniq, num_buckets, hashed=True).to(torch.int64)
+    return torch.bincount(buckets, minlength=num_buckets).to(torch.int32)
 
 
 def fold_key24(key) -> int:

@@ -6,6 +6,7 @@ for Hopper (``sm_90a``) into ``build/kernels/`` at the repository root —
 a directory ``.gitignore`` lists — the first time it is asked for, and
 loads the shared library with ``ctypes``.  The file name carries a hash of
 the source, so an edited kernel is rebuilt and a stale one never loads.
+``build_all(names)`` builds several kernels at once, one ``nvcc`` each.
 Nothing here runs at import time: the CPU tests import every module, and
 this host has no ``nvcc``.
 """
@@ -20,15 +21,11 @@ import pathlib
 import shutil
 import subprocess
 import tempfile
-import threading
 
 KERNELS_DIR = pathlib.Path(__file__).resolve().parent
 BUILD_DIR = KERNELS_DIR.parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
-
-_LOCK = threading.Lock()
-
 
 def source_path(name: str) -> pathlib.Path:
     """``kernels/<name>/csrc/<name>.cu``."""
@@ -52,28 +49,50 @@ def find_nvcc() -> str:
                        "the CUDA kernels are built from source at first use")
 
 
-def build(name: str) -> pathlib.Path:
-    """Compile kernel ``name`` unless a build of this exact source exists;
-    returns the shared library's path.  Concurrent builds in one process
-    serialise on a lock; across processes the finished library is moved
-    into place atomically."""
+def _target(name: str) -> pathlib.Path:
+    """Where a build of kernel ``name``'s current source lives."""
     src = source_path(name)
     digest = hashlib.sha256(src.read_bytes()
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"lib{name}-{digest}.so"
-    with _LOCK:
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def build_all(names) -> dict[str, pathlib.Path]:
+    """Compile every kernel in ``names`` that has no build of its exact
+    source yet, one ``nvcc`` process each, all started together; returns
+    each kernel's shared-library path.  Every build writes a temporary
+    file that is moved into place atomically, so concurrent builds (of one
+    kernel or several, from threads or processes) never see a partial
+    library."""
+    running = []
+    for name in names:
+        out = _target(name)
         if out.is_file():
-            return out
+            continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, str(source_path(name))]
+        running.append((subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                         stderr=subprocess.PIPE, text=True),
+                        name, tmp, out))
+    failed = []
+    for proc, name, tmp, out in running:
+        _, err = proc.communicate()
         if proc.returncode != 0:
             os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed for {src}:\n{proc.stderr}")
-        os.replace(tmp, out)
-    return out
+            failed.append(f"nvcc failed for {source_path(name)}:\n{err}")
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return {name: _target(name) for name in names}
+
+
+def build(name: str) -> pathlib.Path:
+    """Compile kernel ``name`` unless a build of this exact source exists;
+    returns the shared library's path."""
+    return build_all([name])[name]
 
 
 @functools.lru_cache(maxsize=None)

@@ -11,18 +11,22 @@ an aggregate reduce) and lowers the chain onto ``repro_torch.engine``:
 * ``Windowing.session(gap)`` → the engine's ``WindowSpec.session``
   variant (host-wire fold, cell-addressed carry);
 * ``top_k(k)`` → ``ReduceSpec(mode="top_k")`` — the aggregate fold plus
-  the fixed-capacity heavy-hitters selection at finalization.
+  the fixed-capacity heavy-hitters selection at finalization;
+* an array pipeline (``from_source(shards=...)``) with its one ``map``
+  node, the device UDF, → a batch ``ExecutionPlan`` (no window) compiled
+  to a ``CompiledBatchPlan`` (``BuiltPipeline.batch_plan``).
 
 The result is a ``BuiltPipeline`` — the program the
 ``StreamingCoordinator`` drives (streaming mode) and the batch runner
 drives once over the whole input (batch mode), with bit-identical
-per-window output bytes.
+per-window output bytes; an array pipeline's program runs once over its
+shards.
 
 The reference also lowers multi-stage chains, ``tee`` fan-out, windowed
-joins, group-mode reduction and array (batch) pipelines, and compiles to
-simulated-worker and multi-process backends.  None of these is ported
-yet: each raises ``NotImplementedError`` at build naming the
-``ROADMAP.md`` item that queues it — nothing falls back.
+joins and group-mode reduction, and compiles to simulated-worker and
+multi-process backends.  None of these is ported yet: each raises
+``NotImplementedError`` at build naming the ``ROADMAP.md`` item that
+queues it — nothing falls back.
 """
 
 from __future__ import annotations
@@ -47,6 +51,9 @@ _STAGE_RANK = {"source": 0, "map": 1, "key_by": 2, "window": 3,
 
 _ORDER_HINT = ("stage order is source → map* → key_by → window → reduce "
                "→ top_k → sink")
+
+_ARRAY_ONE_SHOT = ("array pipelines are one-shot batch jobs: no window/join/"
+                   "tee nodes and no continued stages")
 
 
 def _default_key(rec) -> Any:
@@ -87,10 +94,11 @@ def fuse_maps(fns: list[Callable]) -> Callable | None:
 class SourceSpec:
     """Where the chain's records come from (bound at build or at run)."""
 
-    kind: str           # "log" | "records" | "unbound"
+    kind: str           # "log" | "records" | "array" | "unbound"
     prefix: str | None = None
     records: list | None = None
     batch_records: int = 1024
+    shards: Any = None  # array pipelines: the worker shards
 
 
 @dataclass(frozen=True)
@@ -134,12 +142,12 @@ class EmitSpec:
 
 @dataclass(frozen=True)
 class StagePlan:
-    """The lowered stage: its compiled side plan, window shape, and
-    emission spec."""
+    """The lowered stage: its compiled side plan, window shape (``None``
+    for an array pipeline), and emission spec."""
 
     index: int
     sides: tuple[SidePlan, ...]
-    window: Windowing
+    window: Windowing | None
     mode: str                       # fold machinery: "aggregate"
     emit: EmitSpec
     num_buckets: int                # carry bucket width
@@ -148,7 +156,7 @@ class StagePlan:
 
     @property
     def is_session(self) -> bool:
-        return self.window.is_session
+        return self.window is not None and self.window.is_session
 
     def assigner(self):
         """Fixed-window assigner (None for session windows)."""
@@ -170,7 +178,8 @@ class StagePlan:
 @dataclass
 class BuiltPipeline:
     """A validated, lowered single-stage pipeline — the program both
-    execution modes drive, with its carry on ``device``."""
+    execution modes drive, with its carry on ``device`` — or an array
+    pipeline's one-shot ``batch_plan``."""
 
     stages: tuple[StagePlan, ...]
     num_buckets: int
@@ -185,11 +194,17 @@ class BuiltPipeline:
     job_id: str
     device: Any
     backend: str = BACKEND
+    batch_plan: Any = None          # array pipelines: CompiledBatchPlan
 
     # -- single-stage views (what planlint and the runtime read) --------------
     @property
     def sides(self) -> tuple[SidePlan, ...]:
         return self.stages[0].sides
+
+    @property
+    def is_array(self) -> bool:
+        """An array (batch) pipeline: no window, one ``batch_plan`` run."""
+        return self.stages[0].window is None
 
     @property
     def final_stages(self) -> tuple[int, ...]:
@@ -235,13 +250,24 @@ class BuiltPipeline:
             mode: str | None = None):
         """The one front door for executing the program: a
         ``StreamSource`` streams through the pipelined coordinator, an
-        in-memory record list runs as one batch, and ``None`` falls back
-        to the graph's bound source.  Returns a ``StreamReport``
-        (streaming) or ``(outputs, report)`` (batch)."""
+        in-memory record list (or an array pipeline's shards) runs as one
+        batch, and ``None`` falls back to the graph's bound source.
+        Returns a ``StreamReport`` (streaming), ``(outputs, report)``
+        (windowed batch) or ``(result, stats)`` (array)."""
         from .runtime import run
         return run(self, source_or_data, options=options, store=store,
                    meta=meta, bus=bus, autoscaler=autoscaler, pool=pool,
                    announce=announce, flush=flush, mode=mode)
+
+    def run_batch(self, store=None, *, data=None, source=None,
+                  options=None):
+        """One-shot pinned explicitly — :meth:`run` with ``mode="batch"``:
+        an array pipeline runs its batch plan over ``data`` (or the bound
+        shards) and returns ``(result, stats)``; a windowed pipeline folds
+        ``source`` in one pass and returns ``(outputs, report)``."""
+        from .runtime import run_batch
+        return run_batch(self, store, data=data, source=source,
+                         options=options)
 
 
 # ---------------------------------------------------------------------------
@@ -255,15 +281,14 @@ def _parse_chain(p: Pipeline) -> tuple[_Chain, str | None]:
     if not p.nodes or p.nodes[0].op != "source":
         raise PipelineError("a pipeline starts at Pipeline.from_source(...)")
     src = p.nodes[0].params
-    if src["kind"] == "array":
-        raise not_ported("array (batch) pipelines",
-                         "Queue A #9 (batch plans + hash_combine)")
     if src["kind"] == "carry-stub":
         raise not_ported("tee branches", "Queue A #6 (multi-stage chains and "
                                          "tee)")
+    is_array = src["kind"] == "array"
     source = SourceSpec(kind=src["kind"], prefix=src["prefix"],
                         records=src["records"],
-                        batch_records=src["batch_records"])
+                        batch_records=src["batch_records"],
+                        shards=src["shards"])
     st = {"maps": [], "key_fn": None, "windowing": None, "reduce": None,
           "top": None}
     sink_prefix = None
@@ -274,6 +299,9 @@ def _parse_chain(p: Pipeline) -> tuple[_Chain, str | None]:
             raise PipelineError(f"unknown node op {node.op!r}")
         if node.op == "source":
             raise PipelineError("more than one source")
+        if is_array and (node.op in ("window", "join", "tee") or (
+                st["reduce"] is not None and r <= _STAGE_RANK["reduce"])):
+            raise PipelineError(_ARRAY_ONE_SHOT)
         if node.op == "join":
             raise not_ported("windowed joins", "Queue A #7 (joins)")
         if node.op == "tee":
@@ -305,6 +333,9 @@ def _parse_chain(p: Pipeline) -> tuple[_Chain, str | None]:
     red = st["reduce"]
     if red is None:
         raise PipelineError(f"a pipeline needs a reduce node ({_ORDER_HINT})")
+    if is_array and len(st["maps"]) != 1:
+        raise PipelineError("array pipelines need exactly one map node "
+                            "(the device UDF)")
     chain = _Chain(
         source=source, transform=fuse_maps(st["maps"]),
         key_fn=st["key_fn"] or _default_key, value_fn=_default_value,
@@ -380,12 +411,87 @@ def _stage_emit(chain: _Chain, num_buckets: int) -> tuple[EmitSpec, int, str]:
 # ---------------------------------------------------------------------------
 
 def _key_space_obj(key_space, num_buckets: int) -> KeySpace:
-    """A ``KeySpace`` instance passes through; a kind string builds one."""
+    """A ``KeySpace`` instance passes through verbatim (the caller
+    controls collision tracking); a kind string builds one."""
     if isinstance(key_space, KeySpace):
         return key_space
     if key_space == "hashed":
         return KeySpace.hashed(num_buckets)
     return KeySpace.dense(num_buckets)
+
+
+def _side(chain: _Chain, compiled, num_buckets: int) -> SidePlan:
+    return SidePlan(name="main", source=chain.source,
+                    transform=chain.transform, key_fn=chain.key_fn,
+                    value_fn=chain.value_fn, compiled=compiled,
+                    num_buckets=num_buckets)
+
+
+def _lower_array(chain: _Chain, *, num_buckets: int, n_workers: int,
+                 n_slots: int, key_space, lateness: float, backend: str,
+                 finalize: bool, combine_fn, device):
+    """An array chain → its batch plan, compiled with the UDF, and the
+    stage (no window) that carries it."""
+    if chain.options:
+        raise PipelineError("array pipelines take build-wide options only "
+                            "(stage-local num_buckets / n_slots size "
+                            "windowed record-stage carries)")
+    if num_buckets < 1:
+        raise PipelineError("num_buckets must be >= 1")
+    ks = _key_space_obj(key_space, num_buckets)
+    top = chain.top
+    if top is not None:
+        rank_by = top["by"] or "sum"
+        reduce = ReduceSpec(mode="top_k", reduce_fn=rank_by, k=top["k"],
+                            combine_fn=combine_fn)
+        emit = EmitSpec("top_k", k=top["k"], rank_by=rank_by)
+    elif chain.reduce_mode == "group":
+        raise not_ported("group-mode array reduction",
+                         "Queue A #8 (group mode)")
+    else:
+        reduce = ReduceSpec("aggregate", combine_fn=combine_fn)
+        emit = EmitSpec("aggregate", aggregation=chain.reduce_spec)
+    plan = ExecutionPlan(key_space=ks, reduce=reduce, n_workers=n_workers)
+    compiled = plan.compile(chain.transform, backend=backend, device=device,
+                            finalize=finalize)
+    stage = StagePlan(0, (_side(chain, compiled, num_buckets),), None,
+                      chain.reduce_mode, emit, num_buckets, n_slots,
+                      lateness)
+    return compiled, stage
+
+
+def _lower_windowed(chain: _Chain, *, num_buckets: int, n_workers: int,
+                    n_slots: int, key_space, lateness: float, fanout: str,
+                    backend: str, device):
+    """A windowed record chain → its streaming plan on ``device`` and the
+    stage that carries it."""
+    nb = chain.options.get("num_buckets", num_buckets)
+    ns = chain.options.get("n_slots", n_slots)
+    if chain.options and isinstance(key_space, KeySpace):
+        raise PipelineError("stage-local options cannot combine with a "
+                            "KeySpace instance")
+    if nb < 1:
+        raise PipelineError("num_buckets must be >= 1")
+    if ns < 2:
+        raise PipelineError("need >= 2 window slots (one closing, one open)")
+    _check_chain(chain, n_slots=ns, lateness=lateness)
+    emit, top_k, rank_by = _stage_emit(chain, nb)
+
+    ks = _key_space_obj(key_space, nb)
+    w = chain.windowing
+    if w.is_session:
+        window = WindowSpec.session(w.gap, n_slots=ns)
+    else:
+        window = WindowSpec(size=w.size, slide=w.slide, n_slots=ns,
+                            fanout_on_device=fanout == "device")
+    reduce = (ReduceSpec(mode="top_k", reduce_fn=rank_by, k=top_k)
+              if top_k else ReduceSpec("aggregate"))
+    plan = ExecutionPlan(key_space=ks, reduce=reduce, n_workers=n_workers,
+                         window=window)
+    compiled = plan.compile(backend=backend, device=device)
+    stage = StagePlan(0, (_side(chain, compiled, ks.num_buckets),), w,
+                      "aggregate", emit, ks.num_buckets, ns, lateness)
+    return compiled, stage
 
 
 def build_pipeline(p: Pipeline, *, num_buckets: int = 128,
@@ -396,15 +502,19 @@ def build_pipeline(p: Pipeline, *, num_buckets: int = 128,
                    batch_records: int | None = None,
                    job_id: str | None = None,
                    output_prefix: str | None = None,
-                   device="cuda") -> BuiltPipeline:
+                   device="cuda", finalize: bool = True,
+                   combine_fn=None) -> BuiltPipeline:
     """Validate ``p`` and lower it to a runnable ``BuiltPipeline`` whose
     carry lives on ``device`` — ``"cuda"`` by default, which must exist
-    (pass ``device="cpu"`` to run the plain PyTorch fold on the CPU).
+    (pass ``device="cpu"`` to run the plain PyTorch versions on the CPU).
     ``key_space`` is ``"dense"`` / ``"hashed"`` or a ``KeySpace``
-    instance; ``fanout`` picks the device (one row per record) or host
-    (one row per record × window) wire.  ``n_workers`` only caps a private
-    pool's scale, as in the reference: the flat fold has no worker axis
-    (ROADMAP Queue A #11), so it changes nothing the fold computes."""
+    instance (passed to the plan verbatim); ``fanout`` picks the device
+    (one row per record) or host (one row per record × window) wire.  For
+    a windowed pipeline ``n_workers`` only caps a private pool's scale, as
+    in the reference: the flat fold has no worker axis (ROADMAP Queue A
+    #11).  An array pipeline takes ``n_workers`` shards; ``finalize`` and
+    ``combine_fn`` (``None``/``"pallas"``: the hash_combine kernel, or a
+    callable) shape its batch plan."""
     if isinstance(num_buckets, (tuple, list)):
         raise not_ported("per-side num_buckets (joins)", "Queue A #7 (joins)")
     if isinstance(key_space, KeySpace):
@@ -420,45 +530,30 @@ def build_pipeline(p: Pipeline, *, num_buckets: int = 128,
     if checkpoint_interval < 1:
         raise PipelineError("checkpoint_interval must be >= 1")
     chain, sink_prefix = _parse_chain(p)
-    nb = chain.options.get("num_buckets", num_buckets)
-    ns = chain.options.get("n_slots", n_slots)
-    if chain.options and isinstance(key_space, KeySpace):
-        raise PipelineError("stage-local options cannot combine with a "
-                            "KeySpace instance")
-    if nb < 1:
-        raise PipelineError("num_buckets must be >= 1")
-    if ns < 2:
-        raise PipelineError("need >= 2 window slots (one closing, one open)")
-    _check_chain(chain, n_slots=ns, lateness=allowed_lateness)
-    emit, top_k, rank_by = _stage_emit(chain, nb)
-
-    ks = _key_space_obj(key_space, nb)
-    w = chain.windowing
-    if w.is_session:
-        window = WindowSpec.session(w.gap, n_slots=ns)
+    if chain.source.kind == "array":
+        compiled, stage = _lower_array(
+            chain, num_buckets=num_buckets, n_workers=n_workers,
+            n_slots=n_slots, key_space=key_space, lateness=allowed_lateness,
+            backend=backend, finalize=finalize, combine_fn=combine_fn,
+            device=device)
+    elif combine_fn is not None:
+        raise PipelineError("combine_fn shapes an array pipeline's batch "
+                            "plan; the streaming fold is its own combiner")
     else:
-        window = WindowSpec(size=w.size, slide=w.slide, n_slots=ns,
-                            fanout_on_device=fanout == "device")
-    reduce = (ReduceSpec(mode="top_k", reduce_fn=rank_by, k=top_k)
-              if top_k else ReduceSpec("aggregate"))
-    plan = ExecutionPlan(key_space=ks, reduce=reduce, n_workers=n_workers,
-                         window=window)
-    compiled = plan.compile(backend=backend, device=device)
-    side = SidePlan(name="main", source=chain.source,
-                    transform=chain.transform, key_fn=chain.key_fn,
-                    value_fn=chain.value_fn, compiled=compiled,
-                    num_buckets=ks.num_buckets)
-    stage = StagePlan(0, (side,), w, "aggregate", emit, ks.num_buckets, ns,
-                      allowed_lateness)
+        compiled, stage = _lower_windowed(
+            chain, num_buckets=num_buckets, n_workers=n_workers,
+            n_slots=n_slots, key_space=key_space, lateness=allowed_lateness,
+            fanout=fanout, backend=backend, device=device)
     built = BuiltPipeline(
-        stages=(stage,), num_buckets=ks.num_buckets, n_workers=n_workers,
+        stages=(stage,), num_buckets=stage.num_buckets, n_workers=n_workers,
         n_slots=n_slots, batch_records=batch_records or
         chain.source.batch_records, key_space=key_space_str, fanout=fanout,
         allowed_lateness=allowed_lateness,
         checkpoint_interval=checkpoint_interval,
         output_prefix=output_prefix or sink_prefix or "stream-output/",
         job_id=job_id or "p" + uuid.uuid4().hex[:11],
-        device=compiled.device)
+        device=compiled.device,
+        batch_plan=compiled if stage.window is None else None)
     from ..analysis.diagnostics import warn_diagnostics
     warn_diagnostics(built.check())
     return built

@@ -9,7 +9,9 @@ graph's bound ``records=``) drives **batch** mode — the same program once
 over the full input, where the end-of-input flush finalizes every window,
 so per-window output bytes equal the streaming run's.  ``None`` falls
 back to the graph's bound source: a log prefix streams, bound records run
-as one batch.
+as one batch.  An array pipeline has one mode: its batch plan runs once
+over the worker shards (``data``, or the bound ``shards=``) and returns
+``(result, stats)``.
 """
 
 from __future__ import annotations
@@ -81,12 +83,22 @@ def run(built: BuiltPipeline, source_or_data=None, *,
     ``source_or_data`` picks the mode (a ``StreamSource`` streams, a list
     of records runs as one batch, ``None`` uses the graph's bound source);
     ``mode="streaming"|"batch"`` forces it.  Returns a ``StreamReport`` in
-    streaming mode and ``(outputs, report)`` in batch mode.
+    streaming mode, ``(outputs, report)`` for a windowed batch run, and
+    ``(result, stats)`` for an array pipeline.
     """
     opts = options if options is not None else RunOptions()
     opts.validate()
     if mode not in (None, "streaming", "batch"):
         raise ValueError(f"mode must be 'streaming' or 'batch', got {mode!r}")
+    if built.is_array:
+        if mode == "streaming":
+            raise ValueError("array pipelines have no streaming mode")
+        if opts.shard is not None:
+            raise ValueError("shard= partitions a keyed record stream; "
+                             "array pipelines shard via their input shards")
+        shards = (source_or_data if source_or_data is not None
+                  else built.sides[0].source.shards)
+        return built.batch_plan.run(shards)
     source = source_or_data
     if mode is None:
         mode = _infer_mode(built, source)
@@ -113,3 +125,14 @@ def run(built: BuiltPipeline, source_or_data=None, *,
                                  options=opts)
     report = coord.run_stream(src, announce=False, flush=True)
     return built.collect_outputs(store), report
+
+
+def run_batch(built: BuiltPipeline, store=None, *, data=None, source=None,
+              options: RunOptions | None = None):
+    """One-shot mode, pinned: :func:`run` with ``mode="batch"``.  Array
+    pipelines run the batch plan over ``data`` (or the graph's bound
+    shards) and return its ``(result, stats)``; windowed pipelines fold
+    ``source`` in one pass and return ``(outputs, report)``."""
+    if built.is_array:
+        return run(built, data, options=options, mode="batch")
+    return run(built, source, store=store, options=options, mode="batch")

@@ -142,8 +142,9 @@ def test_unported_shapes_raise_not_implemented():
     with pytest.raises(NotImplementedError, match="group mode"):
         ExecutionPlan(ks, ReduceSpec(mode="group"), W,
                       ws).compile(device="cpu")
-    with pytest.raises(NotImplementedError, match="batch plans"):
-        ExecutionPlan(ks, ReduceSpec(), W).compile(device="cpu")
+    with pytest.raises(NotImplementedError, match="group-mode array"):
+        ExecutionPlan(ks, ReduceSpec(mode="group"), W).compile(
+            lambda s: s, device="cpu")
     for backend in ("vmap", "shard_map"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             ExecutionPlan(ks, ReduceSpec(), W, ws).compile(backend=backend,

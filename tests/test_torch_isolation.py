@@ -2,7 +2,8 @@
 
 * ``repro_torch`` (and ``chip_smoke.py``) import torch and numpy, never
   JAX and nothing of the ``repro`` package — checked in a fresh
-  interpreter that builds and runs a pipeline, and by a source scan.
+  interpreter that builds and runs a streaming and an array pipeline,
+  and by a source scan.
 * Entry points default to the card: on a host without CUDA a build that
   does not ask for ``device="cpu"`` raises.
 * The fold wrapper takes its plain version only for CPU tensors: any
@@ -35,6 +36,14 @@ built = (Pipeline.from_source(records=events, batch_records=64).key_by()
          .build(num_buckets=8, n_workers=4, device="cpu", job_id="iso"))
 outputs, report = built.run(store=MemoryStore())
 assert outputs and report.windows_emitted == len(outputs)
+import torch
+from repro_torch.core.mapreduce import wordcount_map_factory
+shards = torch.stack([torch.arange(64).reshape(4, 16) % 5,
+                      torch.ones(4, 16, dtype=torch.int64)], -1)
+array = (Pipeline.from_source(shards=shards).map(wordcount_map_factory(5))
+         .reduce("sum").build(num_buckets=5, n_workers=4, device="cpu"))
+counts, stats = array.run()
+assert counts.tolist()[:5] == [13.0, 13.0, 13.0, 13.0, 12.0], counts
 loaded = sorted(m for m in sys.modules
                 if m == "jax" or m.startswith(("jax.", "jaxlib"))
                 or m == "repro" or m.startswith("repro."))
@@ -80,6 +89,16 @@ def test_build_defaults_to_cuda_and_refuses_without_it(monkeypatch):
         pipe.build(num_buckets=8, n_workers=4, device="cuda:0")
     assert pipe.build(num_buckets=8, n_workers=4,
                       device="cpu").device.type == "cpu"
+
+
+def test_array_build_defaults_to_cuda_and_refuses_without_it(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    pipe = (Pipeline.from_source(shards=torch.zeros((4, 2, 2)))
+            .map(lambda s: (s[:, 0], s[:, 1], s[:, 0] >= 0)).reduce("sum"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pipe.build(num_buckets=8, n_workers=4)
+    built = pipe.build(num_buckets=8, n_workers=4, device="cpu")
+    assert built.device.type == "cpu" and built.is_array
 
 
 _GEOMETRY = dict(fanout=2, n_slots=4, num_buckets=8, carry_buckets=8)

@@ -238,9 +238,9 @@ def test_unported_pipeline_shapes_raise():
     with pytest.raises(NotImplementedError, match="group mode"):
         src.key_by().window(10.0).reduce("median", mode="group",
                                          capacity=8).build(device="cpu")
-    with pytest.raises(NotImplementedError, match="batch"):
+    with pytest.raises(NotImplementedError, match="Queue A #8"):
         Pipeline.from_source(shards=[1]).map(lambda s: s).reduce(
-            "sum").build(device="cpu")
+            "median", mode="group", capacity=8).build(device="cpu")
     with pytest.raises(PipelineError, match="n_slots"):
         src.key_by().window(Windowing.sliding(20.0, 5.0)).reduce(
             "sum").build(device="cpu", n_slots=3)

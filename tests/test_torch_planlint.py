@@ -1,11 +1,13 @@
 """The port's planlint against the reference's: the same single-stage
 programs give the same diagnostics (rule id, level, message, location)
 for every rule a port plan can reach (PL001, PL002, PL005), and the
-explain report lists the same findings."""
+explain report lists the same findings — array (batch) programs
+included, where only PL005 applies."""
 
 import dataclasses
 import warnings
 
+import numpy as np
 import pytest
 
 from repro.analysis import planlint as jplanlint
@@ -99,3 +101,28 @@ def test_build_warns_planlint_findings():
     with warnings.catch_warnings():
         warnings.simplefilter("error")
         src.build(num_buckets=8, device="cpu")
+
+
+@pytest.mark.parametrize("key_space,sink", [("dense", "out/"),
+                                            ("hashed", "jobs/out/")])
+def test_array_planlint_matches_reference(key_space, sink):
+    """An array program has no window: PL001/PL002 do not read it, PL005
+    does, in both packages alike."""
+    shards = np.zeros((4, 8, 2), np.int32)
+    built = {}
+    for P, extra in ((JPipeline, {"backend": "vmap"}),
+                     (Pipeline, {"device": "cpu"})):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            built[P] = (P.from_source(shards=shards)
+                        .map(lambda s: (s[:, 0], s[:, 1], s[:, 0] >= 0))
+                        .reduce("sum").sink(sink)
+                        .build(num_buckets=1 << 14, n_workers=4,
+                               key_space=key_space, job_id="arr", **extra))
+    ref = _findings(built[JPipeline].check())
+    assert _findings(built[Pipeline].check()) == ref
+    assert [rule for rule, *_ in ref] == ([] if sink == "out/"
+                                          else ["PL005"])
+    report = built[Pipeline].explain()
+    assert "array mode=aggregate" in report
+    assert ("planlint: clean" in report) == (sink == "out/")
