@@ -63,12 +63,69 @@ card, phase by phase; any mismatch raises and the script exits non-zero:
    hashed buckets, ``device="cuda"`` against ``device="cpu"``: equal
    results, ``sent`` and per-bucket collision counts.
 
+8. Flash attention forward vs plain: the kernel's wrapper against
+   ``chunked_attention`` on the same card tensors over GQA groups 1, 2
+   and 8, head dims 64, 96, 128 and 256, causal on and off, windows none,
+   16 and 4096, softcap none and 50, ragged Sq and Skv (777, 1000, 8191),
+   float32 and bfloat16, and the main path's two shapes (B = 1, Hq = 16,
+   Hkv = 8, S = 8192, D = 256, bfloat16, softcap 50, window 4096 and
+   none).  Tolerance (``FA_TOL``): bfloat16 within atol 5e-3 + rtol 2e-2
+   element by element and a relative L2 error ``||got - want|| /
+   ||want||`` of at most 5e-3 — the tensor cores take P rounded to
+   bfloat16 (up to 2^-9 max|v| absolute per element, about 2e-3 relative
+   L2), and the outputs round to bfloat16 (one step, at most 2^-7
+   relative); float32 within atol 1e-4 + rtol 1e-4 and relative L2 1e-3
+   (float32 FMAs in another order).  Each case also holds a planted fault
+   to the same tolerance and fails unless it is rejected: the plain
+   version with one 64-key V tile zeroed, as a kernel that skipped that
+   tile would compute.  Per shape: the error, its relative L2 and the RMS
+   of the plain output, the wrapper's time (CUDA events), the kernel's
+   device time (torch.profiler) and the operation/byte bound; at the main
+   path's shapes also the plain version's time and
+   ``scaled_dot_product_attention``'s (GQA via ``enable_gqa``, the window
+   as a boolean mask; it has no softcap, so the yardstick omits it).
+9. Split-K decode vs plain: ``decode_attention`` against ``decode_ref``
+   over B 1-8, GQA groups 1-8, per-row lengths from 1 to S_max
+   (including S_max), windows none, 16 and 4096, softcap none and 50,
+   S_max up to 8320.  Tolerance (``FD_TOL``): the kernel sums in float32
+   like its plain version and rounds once, so bfloat16 within atol 1e-4 +
+   rtol 1e-2 and relative L2 5e-3, float32 as in phase 8.  The planted
+   fault: row 0's first split of live V positions zeroed, as a kernel
+   that dropped that split would compute.  The same numbers.
+10. Gemma 2 9B at full width (``configs.get("gemma2-9b")``: 42 layers,
+   d_model 3584, 9,241,401,344 parameters in bfloat16, random weights
+   from the seed — no checkpoint is in the repository): one 8,192-token
+   prompt through ``prefill_forward``, then 16 greedy ``decode_step``s
+   from its cache; the launch counts must be 42 forward and 42 x 16
+   decode launches.  One windowed and one global layer's real q, k, v
+   (prefill) and q, caches, lengths (first decode step) are captured and
+   each kernel is held against its plain version on them (the planted
+   faults are reported there, not required to fail).  Logits, each pair
+   within ``LOGIT_TOL`` (atol 0.1 + rtol 0.05 element by element, max
+   |diff| 0.25, relative L2 0.04; the float32 logits lie under 30, the
+   final softcap): the last prefill logits against those of decoding the
+   last token from a prefill one token shorter, with the kernels and
+   again with the plain versions in their places (the model's own
+   bfloat16 path rounds at other places in prefill and decode); and
+   kernel against plain on each path — the 8,192-token prefill, and the
+   decode step on one cache.  Prefill tokens/s, decode ms per step and
+   peak device memory.
+11. Batched serving at full width: ``BatchedServer`` with 4 slots and
+   ``max_len`` 128 on 8 requests of 32-token prompts and 32 new tokens;
+   every request drains, 8 x 32 tokens served, decode launches = 42 x
+   the decode steps (admission included), forward launches = 42 x the
+   prefills (none: admission runs decode steps); tokens/s and the share
+   of the wall spent in admission.
+
 Before the last line it prints one JSON object ``{"kernels": [...]}``
 (per kernel: launches on its main path, error, kernel / plain / bound /
 library times at its main path's shape); the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Exits non-zero without a result when torch sees no CUDA device or when the
-repository's sources are missing.
+repository's sources are missing.  The kernels line's ``launches`` for the
+two attention kernels are phase 10's (its main path, counts set to 0 just
+before it); their times are the mean of the windowed and the global
+layer's shapes captured there.
 """
 
 from __future__ import annotations
@@ -98,6 +155,45 @@ HC_BUCKETS = (32, 1000, 4096, 65536)
 HC_DS = (1, 4, 16)
 HC_KERNELS = ("combine_shared", "combine_global", "round_to_bf16")
 HASHED = {"n_tokens": 1 << 20, "vocab": 1 << 16, "buckets": 1024}
+BF16_OPS_PER_S = 989e12         # H100 SXM bf16 tensor cores, dense
+MMA_HEAD_DIMS = (64, 128, 256)  # bf16 head dims of the tensor-core path
+FD_KERNELS = ("decode_split", "decode_combine")
+# atol, rtol, relative L2 (||got - want|| / ||want||) of kernel vs plain
+FA_TOL = {"bfloat16": (5e-3, 2e-2, 5e-3), "float32": (1e-4, 1e-4, 1e-3)}
+FD_TOL = {"bfloat16": (1e-4, 1e-2, 5e-3), "float32": (1e-4, 1e-4, 1e-3)}
+FAULT_TILE = 64                 # keys of the forward's planted skipped tile
+FA_REPS = 5
+FA_CASES = [  # b, hq, hkv, sq, skv, d, causal, window, softcap, dtype
+    (1, 8, 8, 1000, 1000, 64, True, None, None, "bfloat16"),
+    (2, 16, 8, 1000, 1000, 128, True, 16, 50.0, "bfloat16"),
+    (1, 16, 2, 1000, 8191, 256, False, None, 50.0, "bfloat16"),
+    (1, 16, 8, 8191, 8191, 256, True, 4096, 50.0, "bfloat16"),
+    (1, 4, 2, 500, 500, 96, True, 64, 50.0, "bfloat16"),
+    (1, 8, 1, 1000, 1000, 256, True, 4096, None, "float32"),
+    (2, 4, 4, 1000, 1000, 64, False, 16, 50.0, "float32"),
+    (1, 8, 4, 777, 777, 128, True, None, None, "float32"),
+    (1, 16, 8, 8192, 8192, 256, True, 4096, 50.0, "bfloat16"),
+    (1, 16, 8, 8192, 8192, 256, True, None, 50.0, "bfloat16"),
+]
+FD_CASES = [  # b, hq, hkv, s_max, d, window, softcap, dtype
+    (1, 16, 8, 8320, 256, None, 50.0, "bfloat16"),
+    (4, 16, 8, 8320, 256, 4096, 50.0, "bfloat16"),
+    (8, 16, 8, 8320, 256, 16, None, "bfloat16"),
+    (2, 8, 8, 1000, 64, None, None, "float32"),
+    (3, 16, 2, 4096, 128, 4096, 50.0, "float32"),
+    (5, 32, 8, 2048, 128, 16, 50.0, "bfloat16"),
+    (6, 56, 8, 1024, 128, None, None, "bfloat16"),
+    (1, 4, 4, 1, 64, None, None, "bfloat16"),
+]
+GEMMA = {"arch": "gemma2-9b", "prompt": 8192, "decode_steps": 16}
+SERVE = {"slots": 4, "max_len": 128, "requests": 8, "prompt": 32,
+         "max_new": 32}
+# two logit vectors at full width: atol + rtol element by element, and a
+# max |diff| and relative L2 of twice the largest gap read on the card,
+# where the plain path's own prefill vs decode gap (no kernels) was 0.1032
+# / 0.0188 and kernel vs plain 0.1173 / 0.0208 (the floor of bfloat16
+# rounding carried through 42 layers)
+LOGIT_TOL = {"atol": 0.1, "rtol": 0.05, "max_abs": 0.25, "rel_l2": 0.04}
 
 
 def _median_ms(fn, reps: int = REPS, warmup: int = 3) -> float:
@@ -674,6 +770,551 @@ def phase_hashed(torch, hc, wc) -> None:
           "device='cuda' and device='cpu'")
 
 
+def _device_us_per_call(torch, fn, names, reps=FA_REPS) -> str:
+    """Device time per ``fn()`` call of the named kernels, each launched
+    once a call, from torch.profiler's CPU and CUDA trace: the mean
+    duration of each kernel's records, summed over the kernels.  The
+    trace may miss a launch's record at the edge of the window, so the
+    mean is taken over the records it holds (their count is printed)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    per_name = {}
+    for ev in prof.key_averages():
+        for n in names:
+            if n in ev.key and ev.count:
+                count, total = per_name.get(n, (0, 0.0))
+                per_name[n] = (count + ev.count, total + _device_us(ev))
+    if set(per_name) != set(names) or \
+            any(t <= 0 for _, t in per_name.values()):
+        return "not measured"
+    us = sum(t / c for c, t in per_name.values())
+    records = sum(c for c, _ in per_name.values())
+    return f"{us:.2f} us ({records} of {reps * len(names)} records)"
+
+
+def _profile_step(torch, fn, label) -> None:
+    """One call of ``fn`` under torch.profiler: its host wall, the device
+    time of all its kernels, their count, and the largest by device
+    time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = [ev for ev in prof.key_averages()
+              if ev.device_type == DeviceType.CUDA]
+    device_us = sum(_device_us(ev) for ev in events)
+    kernels = sum(ev.count for ev in events)
+    print(f"{label} under torch.profiler: wall {wall * 1e3:.3f} ms, device "
+          f"work {device_us / 1e3:.3f} ms = {100 * device_us / 1e6 / wall:.1f}"
+          f"% busy, {kernels} kernels", flush=True)
+    for ev in sorted(events, key=_device_us, reverse=True)[:6]:
+        print(f"  device {_device_us(ev) / 1e3:9.3f} ms  x{ev.count:<5d} "
+              f"{ev.key[:80]}")
+
+
+def _fa_tensors(torch, rng, shapes, dtype, device):
+    """Standard-normal card tensors of ``shapes`` from the numpy seed."""
+    return [torch.from_numpy(rng.standard_normal(s, dtype=np.float32))
+            .to(device, getattr(torch, dtype)) for s in shapes]
+
+
+def _live_keys(sq, skv, causal, window) -> np.ndarray:
+    """Live keys per query row of the forward mask (query i and key j both
+    count from 0)."""
+    i = np.arange(sq, dtype=np.int64)
+    lo = np.maximum(0, i - window + 1) if window else np.zeros_like(i)
+    hi = np.minimum(skv, i + 1) if causal else np.full_like(i, skv)
+    return np.maximum(hi - lo, 0)
+
+
+def _peak(dtype: str) -> float:
+    return BF16_OPS_PER_S if dtype == "bfloat16" else FP32_OPS_PER_S
+
+
+def _fa_bound_ms(q, k, causal, window, dtype) -> tuple[float, str]:
+    """Least time for one forward call on these shapes: q, k, v read and o
+    written once over HBM bandwidth, against 4·D operations (Q K^T and
+    P V) per live (query, key) pair of every q head over the dtype's peak
+    (bf16 tensor cores, or float32 outside them)."""
+    b, hq, sq, d = q.shape
+    skv = k.shape[2]
+    pairs = int(_live_keys(sq, skv, causal, window).sum()) * b * hq
+    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, 4 * d * pairs / _peak(dtype)
+    return max(by_bytes, by_ops) * 1e3, ("bytes" if by_bytes >= by_ops
+                                         else "operations")
+
+
+def _fd_live(lengths, s_max, window) -> np.ndarray:
+    lens = np.asarray(lengths, np.int64)
+    lo = np.maximum(0, lens - window) if window else np.zeros_like(lens)
+    return np.maximum(np.minimum(lens, s_max) - lo, 0)
+
+
+def _fd_bound_ms(q, kc, lengths, window, dtype) -> tuple[float, str]:
+    """Least time for one decode call on these inputs: each row's live
+    cache positions of K and V read once, q read and o written once, the
+    lengths read once; against 4·D operations per live key of every q
+    head."""
+    b, hq, d = q.shape
+    hkv, s_max = kc.shape[1], kc.shape[2]
+    live = int(_fd_live(lengths, s_max, window).sum())
+    esize = q.element_size()
+    nbytes = 2 * live * hkv * d * esize + 2 * q.numel() * esize + 4 * b
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, 4 * d * live * hq / _peak(
+        dtype)
+    return max(by_bytes, by_ops) * 1e3, ("bytes" if by_bytes >= by_ops
+                                         else "operations")
+
+
+def _sdpa_forward(torch, q, k, v, causal, window, scale):
+    """One ``scaled_dot_product_attention`` call for the same mask (no
+    softcap: it has none).  Not used by the port."""
+    import torch.nn.functional as F
+    sq, skv = q.shape[2], k.shape[2]
+    mask = None
+    if window:
+        qp = torch.arange(sq, device=q.device)[:, None]
+        kp = torch.arange(skv, device=q.device)[None, :]
+        mask = qp - kp < window
+        if causal:
+            mask &= qp >= kp
+    return lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask, is_causal=causal and mask is None,
+        scale=scale, enable_gqa=True)
+
+
+def _sdpa_decode(torch, q, kc, vc, lengths, window, scale):
+    """One ``scaled_dot_product_attention`` call over the whole caches
+    with each row's live range as a boolean mask.  Not used by the port."""
+    import torch.nn.functional as F
+    kp = torch.arange(kc.shape[2], device=q.device)[None, :]
+    lens = lengths.long()[:, None]
+    mask = kp < lens
+    if window:
+        mask &= kp >= lens - window
+    mask = mask[:, None, None, :]
+    q4 = q[:, :, None, :]
+    return lambda: F.scaled_dot_product_attention(
+        q4, kc, vc, attn_mask=mask, scale=scale, enable_gqa=True)
+
+
+def _errors(torch, got, want, tol) -> dict:
+    """Max |err|, relative L2 error ``||got - want|| / ||want||`` and the
+    RMS of ``want``, and whether ``got`` is finite and lies within ``tol``
+    = (atol, rtol, relative L2) of ``want``, element by element and as a
+    whole."""
+    atol, rtol, rel_l2 = tol
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    norm, err_norm = float(w.norm()), float(err.norm())
+    out = {"max": float(err.max()) if err.numel() else 0.0,
+           "rel_l2": err_norm / norm if norm > 0 else err_norm,
+           "rms": norm / max(w.numel(), 1) ** 0.5}
+    out["ok"] = (bool(torch.isfinite(g).all())
+                 and not bool((err > atol + rtol * w.abs()).any())
+                 and out["rel_l2"] <= rel_l2)
+    return out
+
+
+def _held(torch, got, want, faulty, tol, label, *, must_reject) -> tuple:
+    """The kernel's output against the plain version's, and the plain
+    version with a planted fault against the same: the tolerance must pass
+    the kernel and (where ``must_reject``) reject the fault.  Returns the
+    two error summaries."""
+    e = _errors(torch, got, want, tol)
+    if not e["ok"]:
+        raise AssertionError(f"{label}: kernel != plain version, max |err| "
+                             f"{e['max']:.3g}, relative L2 "
+                             f"{e['rel_l2']:.3g} (atol, rtol, relative L2 = "
+                             f"{tol})")
+    f = _errors(torch, faulty, want, tol)
+    if must_reject and f["ok"]:
+        raise AssertionError(f"{label}: the tolerance {tol} passes the "
+                             f"planted fault (max |err| {f['max']:.3g}, "
+                             f"relative L2 {f['rel_l2']:.3g})")
+    return e, f
+
+
+def _err_text(e, f, tol) -> str:
+    return (f"max |err| {e['max']:.3g}, relative L2 {e['rel_l2']:.3g} at "
+            f"RMS |want| {e['rms']:.3g} (atol {tol[0]} + rtol {tol[1]}, "
+            f"relative L2 {tol[2]}); planted fault {f['max']:.3g} / "
+            f"{f['rel_l2']:.3g} {'rejected' if not f['ok'] else 'PASSES'}")
+
+
+def _fa_case(torch, fa, fa_ref, q, k, v, causal, window, cap, dtype, label,
+             *, timed, must_reject=True, reps=FA_REPS) -> dict:
+    """Forward kernel vs plain on (q, k, v): the error and the times.  The
+    planted fault is the plain version with V's ``FAULT_TILE`` keys at the
+    middle of the keys zeroed, as a kernel that skipped that tile in P V
+    would compute.  Plain and library times only where ``timed``."""
+    kw = dict(causal=causal, window=window, softcap=cap)
+    tol = FA_TOL[dtype]
+    t0 = (k.shape[2] // 2) // FAULT_TILE * FAULT_TILE
+    v_fault = v.clone()
+    v_fault[:, :, t0:t0 + FAULT_TILE] = 0
+    e, f = _held(torch, fa.attention(q, k, v, **kw), fa_ref(q, k, v, **kw),
+                 fa_ref(q, k, v_fault, **kw), tol, label,
+                 must_reject=must_reject)
+    del v_fault
+    ms = _median_ms(lambda: fa.attention(q, k, v, **kw), reps=reps)
+    plain_ms = lib_ms = None
+    if timed:
+        plain_ms = _median_ms(lambda: fa_ref(q, k, v, **kw), reps=reps,
+                              warmup=1)
+        lib_ms = _median_ms(_sdpa_forward(torch, q, k, v, causal, window,
+                                          q.shape[-1] ** -0.5), reps=reps)
+    mma = q.dtype == torch.bfloat16 and q.shape[-1] in MMA_HEAD_DIMS
+    device_us = _device_us_per_call(
+        torch, lambda: fa.attention(q, k, v, **kw),
+        ("fwd_mma" if mma else "fwd_rows",), reps)
+    bound, by = _fa_bound_ms(q, k, causal, window, dtype)
+    print(f"flash-fwd {label}: {_err_text(e, f, tol)} (V tile "
+          f"[{t0}, {t0 + FAULT_TILE}) zeroed); kernel {ms:.4f} ms per "
+          f"wrapper call (device time {device_us}), bound {bound:.4f} ms "
+          f"({by}), {_plain_text(plain_ms, lib_ms)}", flush=True)
+    return {"max_abs_err": e["max"], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": by, "library_ms": lib_ms}
+
+
+def _plain_text(plain_ms, lib_ms) -> str:
+    if plain_ms is None:
+        return "plain and sdpa timed at the main path's shapes only"
+    return f"plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms"
+
+
+def _main_shape(b, hq, hkv, s, d) -> bool:
+    """The Gemma 2 9B main path's attention shape (B = 1, 16 q heads, 8 kv
+    heads, head_dim 256, the prompt's length or more)."""
+    return (b, hq, hkv, d) == (1, 16, 8, 256) and s >= GEMMA["prompt"]
+
+
+def phase_flash_forward(torch, fa, fa_ref, device) -> float:
+    """Phase 8: the forward kernel vs its plain version over the sweep.
+    Returns the largest absolute error."""
+    rng = np.random.default_rng(SEED + 8)
+    worst = 0.0
+    for b, hq, hkv, sq, skv, d, causal, window, cap, dtype in FA_CASES:
+        q, k, v = _fa_tensors(torch, rng, [(b, hq, sq, d), (b, hkv, skv, d),
+                                           (b, hkv, skv, d)], dtype, device)
+        label = (f"B={b} Hq={hq} Hkv={hkv} Sq={sq} Skv={skv} D={d} "
+                 f"causal={causal} window={window} softcap={cap} {dtype}")
+        worst = max(worst, _fa_case(
+            torch, fa, fa_ref, q, k, v, causal, window, cap, dtype, label,
+            timed=_main_shape(b, hq, hkv, sq, d))["max_abs_err"])
+        del q, k, v
+    return worst
+
+
+def _fd_case(torch, fa, fd_ref, q, kc, vc, lengths, window, cap, dtype,
+             label, *, timed, must_reject=True, reps=FA_REPS) -> dict:
+    """Decode kernel vs plain on these inputs: the error and the times.
+    The planted fault is the plain version with row 0's first split of
+    live V positions zeroed, as a kernel that dropped that split's
+    accumulator would compute.  Plain and library times only where
+    ``timed``."""
+    kw = dict(window=window, softcap=cap)
+    tol = FD_TOL[dtype]
+    lens = lengths.cpu().numpy()
+    b, hkv, s_max = kc.shape[0], kc.shape[1], kc.shape[2]
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    splits = fa.n_splits_for(b, hkv, s_max, sms)
+    lo = max(0, int(lens[0]) - window) if window else 0
+    per = -(-int(_fd_live(lens, s_max, window)[0]) // splits)
+    v_fault = vc.clone()
+    v_fault[0, :, lo:lo + per] = 0
+    e, f = _held(torch, fa.decode_attention(q, kc, vc, lengths, **kw),
+                 fd_ref(q, kc, vc, lengths, **kw),
+                 fd_ref(q, kc, v_fault, lengths, **kw), tol, label,
+                 must_reject=must_reject)
+    del v_fault
+    ms = _median_ms(lambda: fa.decode_attention(q, kc, vc, lengths, **kw),
+                    reps=reps)
+    plain_ms = lib_ms = None
+    if timed:
+        plain_ms = _median_ms(lambda: fd_ref(q, kc, vc, lengths, **kw),
+                              reps=reps, warmup=1)
+        lib_ms = _median_ms(_sdpa_decode(torch, q, kc, vc, lengths, window,
+                                         q.shape[-1] ** -0.5), reps=reps)
+    device_us = _device_us_per_call(
+        torch, lambda: fa.decode_attention(q, kc, vc, lengths, **kw),
+        FD_KERNELS, reps)
+    bound, by = _fd_bound_ms(q, kc, lens, window, dtype)
+    print(f"flash-decode {label}: {_err_text(e, f, tol)} (row 0's split "
+          f"[{lo}, {lo + per}) of {splits} zeroed); kernel {ms:.4f} ms per "
+          f"wrapper call (device time {device_us}), bound {bound:.4f} ms "
+          f"({by}; {int(_fd_live(lens, s_max, window).sum())} live keys), "
+          f"{_plain_text(plain_ms, lib_ms)}", flush=True)
+    return {"max_abs_err": e["max"], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": by, "library_ms": lib_ms}
+
+
+def phase_flash_decode(torch, fa, fd_ref, device) -> float:
+    """Phase 9: the split-K decode kernel vs its plain version over the
+    sweep.  Returns the largest absolute error."""
+    rng = np.random.default_rng(SEED + 9)
+    worst = 0.0
+    for b, hq, hkv, s_max, d, window, cap, dtype in FD_CASES:
+        q, kc, vc = _fa_tensors(torch, rng, [(b, hq, d), (b, hkv, s_max, d),
+                                             (b, hkv, s_max, d)], dtype,
+                                device)
+        lens = rng.integers(1, s_max + 1, b)
+        lens[0] = s_max
+        lens[-1] = 1 if b > 1 else lens[-1]
+        lengths = torch.from_numpy(lens.astype(np.int32)).to(device)
+        label = (f"B={b} Hq={hq} Hkv={hkv} S_max={s_max} D={d} lengths "
+                 f"{lens.tolist()} window={window} softcap={cap} {dtype}")
+        worst = max(worst, _fd_case(
+            torch, fa, fd_ref, q, kc, vc, lengths, window, cap, dtype, label,
+            timed=_main_shape(b, hq, hkv, s_max, d))["max_abs_err"])
+        del q, kc, vc
+    return worst
+
+
+def _mean_times(a: dict, b: dict) -> dict:
+    """Per-launch means over the windowed and the global layer's shapes."""
+    out = {key: (a[key] + b[key]) / 2 for key in
+           ("ms", "plain_ms", "bound_ms", "library_ms")}
+    out["max_abs_err"] = max(a["max_abs_err"], b["max_abs_err"])
+    out["bound_by"] = a["bound_by"] if a["bound_by"] == b["bound_by"] \
+        else "operations" if "operations" in (a["bound_by"], b["bound_by"]) \
+        else "bytes"
+    return out
+
+
+def phase_gemma(torch, fa, fa_ref, fd_ref, device):
+    """Phase 10: Gemma 2 9B at full width — prefill, decode, the kernels
+    on captured layer inputs, and prefill-then-decode agreement.  Returns
+    (params, cfg, forward launches, decode launches, forward times, decode
+    times)."""
+    from repro_torch import configs
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import decode_step, init_params, prefill_forward
+
+    cfg = configs.get(GEMMA["arch"])
+    windows = attn_mod.window_schedule(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(SEED, cfg, device=device)
+    torch.cuda.synchronize()
+    print(f"gemma: {cfg.name} at full width ({cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_params()} parameters, {cfg.param_dtype}) "
+          f"with random weights from seed {SEED} in "
+          f"{time.perf_counter() - t0:.1f} s; windows of layers 0-3 "
+          f"{windows[:4]}", flush=True)
+    rng = np.random.default_rng(SEED + 10)
+    n, steps = GEMMA["prompt"], GEMMA["decode_steps"]
+    max_len = n + steps
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (1, n),
+                                         dtype=np.int64)).to(device)
+
+    # capture the real inputs of layers 0 (windowed) and 1 (global)
+    captured = {"fwd": [], "dec": []}
+    fwd_call, dec_call = attn_mod.attention, attn_mod.decode_attention
+
+    def fwd_capture(q, k, v, **kw):
+        if len(captured["fwd"]) < 2:
+            captured["fwd"].append((q, k, v, kw))
+        return fwd_call(q, k, v, **kw)
+
+    def dec_capture(q, kc, vc, lengths, **kw):
+        if len(captured["dec"]) < 2:
+            captured["dec"].append((q, kc.clone(), vc.clone(),
+                                    lengths.clone(), kw))
+        return dec_call(q, kc, vc, lengths, **kw)
+
+    attn_mod.attention, attn_mod.decode_attention = fwd_capture, dec_capture
+    try:
+        fa.attention.launches = 0
+        fa.decode_attention.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        last, cache = prefill_forward(params, toks, cfg, max_len)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        token = last.argmax(dim=-1, keepdim=True)
+        t0 = time.perf_counter()
+        logits, cache = decode_step(params, cache, token, cfg)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        token = logits.argmax(dim=-1, keepdim=True)
+        t0 = time.perf_counter()
+        for _ in range(steps - 1):
+            logits, cache = decode_step(params, cache, token, cfg)
+            token = logits.argmax(dim=-1, keepdim=True)
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+        fwd_launches = fa.attention.launches
+        dec_launches = fa.decode_attention.launches
+    finally:
+        attn_mod.attention, attn_mod.decode_attention = fwd_call, dec_call
+    peak = torch.cuda.max_memory_allocated()
+    if fwd_launches != cfg.n_layers or dec_launches != cfg.n_layers * steps:
+        raise AssertionError(f"gemma: {fwd_launches} forward and "
+                             f"{dec_launches} decode launches, want "
+                             f"{cfg.n_layers} and {cfg.n_layers * steps}")
+    if not (bool(torch.isfinite(last).all())
+            and bool(torch.isfinite(logits).all())):
+        raise AssertionError("gemma: non-finite logits")
+    if tuple(last.shape) != (1, cfg.vocab) or int(
+            cache["lengths"][0]) != max_len:
+        raise AssertionError(f"gemma: logits {tuple(last.shape)}, length "
+                             f"{int(cache['lengths'][0])}")
+    print(f"gemma: first prefill of {n} tokens in {prefill_s:.4f} s = "
+          f"{n / prefill_s:.0f} tokens/s; first decode step {first_s:.4f} s "
+          f"(both include one-time library and allocator set-up); "
+          f"{steps - 1} further decode steps in {decode_s:.4f} s = "
+          f"{1e3 * decode_s / (steps - 1):.3f} ms per step (B=1, cache "
+          f"{n + 1}-{max_len - 1}); {fwd_launches} flash forward and "
+          f"{dec_launches} flash decode launches; peak device memory "
+          f"{peak / 2**30:.2f} GiB", flush=True)
+
+    # the kernels on the captured layer inputs
+    fwd_t, dec_t = [], []
+    for (q, k, v, kw), layer in zip(captured["fwd"], (0, 1)):
+        label = (f"gemma layer {layer} prefill q{tuple(q.shape)} "
+                 f"k{tuple(k.shape)} window={kw['window']}")
+        fwd_t.append(_fa_case(torch, fa, fa_ref, q.contiguous(),
+                              k.contiguous(), v.contiguous(), True,
+                              kw["window"], kw["softcap"], "bfloat16", label,
+                              timed=True, must_reject=False))
+    for (q, kc, vc, lengths, kw), layer in zip(captured["dec"], (0, 1)):
+        label = (f"gemma layer {layer} decode q{tuple(q.shape)} "
+                 f"cache{tuple(kc.shape)} lengths {lengths.tolist()} "
+                 f"window={kw['window']}")
+        dec_t.append(_fd_case(torch, fa, fd_ref, q.contiguous(), kc, vc,
+                              lengths, kw["window"], kw["softcap"],
+                              "bfloat16", label, timed=True,
+                              must_reject=False))
+    del captured, cache
+
+    # prefill-then-decode: the last prompt token's logits both ways, the
+    # second prefill timed warm, the decode step under the profiler
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, short_cache = prefill_forward(params, toks[:, :-1], cfg, max_len)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    print(f"gemma: warm prefill of {n - 1} tokens in {warm_s:.4f} s = "
+          f"{(n - 1) / warm_s:.0f} tokens/s", flush=True)
+    out = {}
+    _profile_step(torch, lambda: out.update(
+        logits=decode_step(params, short_cache, toks[:, -1:], cfg)[0]),
+        f"gemma: one decode step (B=1, cache {n})")
+    via_decode = out["logits"]
+
+    # the second witness: the same paths with the plain versions in the
+    # kernels' places — kernel vs plain on each path, and how far the
+    # model's own bfloat16 path moves prefill from decode without them
+    attn_mod.attention, attn_mod.decode_attention = fa_ref, fd_ref
+    try:
+        plain_dec = decode_step(params, short_cache, toks[:, -1:], cfg)[0]
+        del short_cache
+        plain_last = prefill_forward(params, toks, cfg, max_len)[0]
+        _, plain_short = prefill_forward(params, toks[:, :-1], cfg, max_len)
+        plain_via_decode = decode_step(params, plain_short, toks[:, -1:],
+                                       cfg)[0]
+        del plain_short
+    finally:
+        attn_mod.attention, attn_mod.decode_attention = fwd_call, dec_call
+    tol = LOGIT_TOL
+    for what, got, want in (
+            ("kernels: last prefill logits vs decoding the last token after "
+             f"a {n - 1}-token prefill", via_decode, last),
+            ("plain versions: the same (the model's own bfloat16 path)",
+             plain_via_decode, plain_last),
+            (f"prefill of {n} tokens, kernel vs plain", last, plain_last),
+            (f"decode step on one {n - 1}-token cache, kernel vs plain",
+             via_decode, plain_dec)):
+        diff = (got - want).abs()
+        worst, rel = float(diff.max()), float(diff.norm() / want.norm())
+        print(f"gemma logits, {what}: max |diff| {worst:.4g}, relative L2 "
+              f"{rel:.3g} over |logits| <= {float(want.abs().max()):.4g} "
+              f"(limits {tol}); argmax {int(want.argmax())} / "
+              f"{int(got.argmax())}", flush=True)
+        if worst > tol["max_abs"] or rel > tol["rel_l2"] or bool(
+                (diff > tol["atol"] + tol["rtol"] * want.abs()).any()):
+            raise AssertionError(f"gemma logits, {what}: differ by "
+                                 f"{worst:.4g} (relative L2 {rel:.3g})")
+    _profile_step(torch, lambda: prefill_forward(params, toks[:, :-1], cfg,
+                                                 max_len),
+                  f"gemma: one prefill of {n - 1} tokens")
+    return (params, cfg, fwd_launches, dec_launches,
+            _mean_times(*fwd_t), _mean_times(*dec_t))
+
+
+def phase_serving(torch, fa, params, cfg, device) -> None:
+    """Phase 11: BatchedServer at full width on 8 requests."""
+    from repro_torch.launch.serve import BatchedServer, Request
+    server = BatchedServer(cfg, params, SERVE["slots"], SERVE["max_len"],
+                           device=device)
+    rng = np.random.default_rng(SEED + 11)
+    reqs = [Request(id=i, prompt=rng.integers(0, cfg.vocab, SERVE["prompt"],
+                                              dtype=np.int32),
+                    max_new=SERVE["max_new"])
+            for i in range(SERVE["requests"])]
+    for r in reqs:
+        server.submit(r)
+    admit, admitted = server._admit, {"s": 0.0, "steps": 0}
+
+    def timed_admit():
+        t = time.perf_counter()
+        waiting = len(server.queue)
+        admit()
+        admitted["steps"] += (waiting - len(server.queue)) * (
+            SERVE["prompt"] - 1)
+        admitted["s"] += time.perf_counter() - t
+
+    server._admit = timed_admit
+    fa.attention.launches = 0
+    fa.decode_attention.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    served = batched = 0
+    while any(server.slots) or server.queue:
+        served += server.step()
+        batched += 1
+        if batched > 10_000:
+            raise AssertionError("serving did not drain")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    fwd, dec = fa.attention.launches, fa.decode_attention.launches
+    decode_steps = batched + admitted["steps"]
+    want = SERVE["requests"] * SERVE["max_new"]
+    if served != want or not all(r.done and len(r.tokens) == 1 +
+                                 SERVE["max_new"] for r in reqs):
+        raise AssertionError(f"serving: {served} tokens served, want {want}")
+    if dec != cfg.n_layers * decode_steps or fwd != 0:
+        raise AssertionError(f"serving: {dec} decode launches for "
+                             f"{decode_steps} decode steps, {fwd} forward "
+                             f"launches for no prefill")
+    _profile_step(torch, lambda: server._admit_step(1, 0),
+                  f"serving: one admission step (B={SERVE['slots']})")
+    print(f"serving: {SERVE['requests']} requests x {SERVE['max_new']} new "
+          f"tokens ({SERVE['prompt']}-token prompts, {SERVE['slots']} slots, "
+          f"max_len {SERVE['max_len']}) at full width: {served} tokens in "
+          f"{wall:.3f} s = {served / wall:.1f} tokens/s; {batched} batched "
+          f"steps + {admitted['steps']} admission steps = {decode_steps} "
+          f"decode steps ({1e3 * wall / decode_steps:.1f} ms each), {dec} "
+          f"flash decode launches (= {cfg.n_layers} x "
+          f"{decode_steps}), {fwd} flash forward launches; admission "
+          f"{admitted['s']:.3f} s = {100 * admitted['s'] / wall:.1f}% of the "
+          f"wall", flush=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -683,6 +1324,9 @@ def main() -> int:
     from repro_torch.kernels.fused_fold import ops
     from repro_torch.kernels.fused_fold.ref import fused_streaming_fold_ref
     from repro_torch.kernels.hash_combine import ops as hc
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention.ref import (chunked_attention,
+                                                         decode_ref)
     from repro_torch.kernels.hash_combine.ref import hash_combine_ref
     from repro_torch.workloads import linear_road as lr
     from repro_torch.workloads import wordcount as wc
@@ -697,11 +1341,13 @@ def main() -> int:
           f"{torch.version.cuda}")
 
     t0 = time.perf_counter()
-    _build.build_all(["fused_fold", "hash_combine"])
-    print(f"fused_fold and hash_combine built together (nvcc, sm_90a, one "
-          f"process each) in {time.perf_counter() - t0:.1f} s")
+    _build.build_all(["fused_fold", "hash_combine", "flash_attention"])
+    print(f"fused_fold, hash_combine and flash_attention built together "
+          f"(nvcc, sm_90a, one process each) in "
+          f"{time.perf_counter() - t0:.1f} s")
     ops.library()
     hc.library()
+    fa.library()
 
     worst = phase_kernel(torch, ops, fused_streaming_fold_ref, device)
     main_shape = phase_kernel_main_shape(torch, ops, fused_streaming_fold_ref,
@@ -720,6 +1366,16 @@ def main() -> int:
     hc_launches = phase_wordcount(torch, hc, wc, shards)
     del shards
     phase_hashed(torch, hc, wc)
+    torch.cuda.empty_cache()
+
+    fa_worst = phase_flash_forward(torch, fa, chunked_attention, device)
+    fd_worst = phase_flash_decode(torch, fa, decode_ref, device)
+    torch.cuda.empty_cache()
+    params, cfg, fa_launches, fd_launches, fa_shape, fd_shape = phase_gemma(
+        torch, fa, chunked_attention, decode_ref, device)
+    torch.cuda.empty_cache()
+    phase_serving(torch, fa, params, cfg, device)
+    del params
 
     kernel = {"name": "fused_fold", "route": "cuda",
               "source": "src/repro_torch/kernels/fused_fold/csrc/"
@@ -735,7 +1391,21 @@ def main() -> int:
                "launches": hc_launches}
     combine.update(hc_shape)
     combine["max_abs_err"] = max(hc_worst, hc_shape["max_abs_err"])
-    print(json.dumps({"kernels": [kernel, combine]}))
+    forward = {"name": "flash_attention_fwd", "route": "cuda",
+               "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                         "flash_attention.cu",
+               "replaces": "src/repro/kernels/flash_attention/kernel.py:37",
+               "launches": fa_launches}
+    forward.update(fa_shape)
+    forward["max_abs_err"] = max(fa_worst, fa_shape["max_abs_err"])
+    decode = {"name": "flash_decode", "route": "cuda",
+              "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                        "flash_attention.cu",
+              "replaces": "src/repro/kernels/flash_attention/kernel.py:156",
+              "launches": fd_launches}
+    decode.update(fd_shape)
+    decode["max_abs_err"] = max(fd_worst, fd_shape["max_abs_err"])
+    print(json.dumps({"kernels": [kernel, combine, forward, decode]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

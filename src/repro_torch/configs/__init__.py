@@ -1,0 +1,70 @@
+"""Architecture registry: the partner of ``repro/configs/__init__.py``.
+
+Each ported module defines ``CONFIG`` (the published configuration, copied
+from the reference) and ``reduced()`` (a tiny same-family variant for the
+CPU tests).  The port serves the dense token-input attention
+architectures; the other names stay in ``ARCHS``, and ``get`` /
+``get_reduced`` on them raise ``NotImplementedError`` naming the
+``ROADMAP.md`` item that ports them.
+"""
+
+from __future__ import annotations
+
+import importlib
+
+from ..models.config import ModelConfig
+
+ARCHS = [
+    "gemma2-9b",
+    "stablelm-12b",
+    "qwen3-32b",
+    "yi-34b",
+    "qwen2-moe-a2.7b",
+    "mixtral-8x7b",
+    "zamba2-1.2b",
+    "internvl2-2b",
+    "falcon-mamba-7b",
+    "musicgen-medium",
+]
+
+#: architectures not ported yet → the ROADMAP item that ports them
+NOT_PORTED = {
+    "falcon-mamba-7b": "Queue A #13b (mamba1 layers and the mamba_scan "
+                       "kernel, Queue B #5)",
+    "qwen2-moe-a2.7b": "Queue A #13c (models/moe.py)",
+    "mixtral-8x7b": "Queue A #13c (models/moe.py)",
+    "zamba2-1.2b": "Queue A #13d (mamba2 layers and the shared attention "
+                   "block)",
+    "internvl2-2b": "Queue A #13e (embedding-input frontends)",
+    "musicgen-medium": "Queue A #13e (embedding-input frontends)",
+}
+
+_MODULES = {name: name.replace("-", "_").replace(".", "_") for name in ARCHS}
+
+
+def _load(name: str):
+    if name not in _MODULES:
+        raise KeyError(f"unknown arch {name!r}; known: {ARCHS}")
+    if name in NOT_PORTED:
+        raise NotImplementedError(f"arch {name!r} is not ported to "
+                                  f"repro_torch yet (ROADMAP.md "
+                                  f"{NOT_PORTED[name]})")
+    return importlib.import_module(f"{__name__}.{_MODULES[name]}")
+
+
+def get(name: str) -> ModelConfig:
+    """The published configuration of ``name``."""
+    return _load(name).CONFIG
+
+
+def get_reduced(name: str) -> ModelConfig:
+    """The tiny same-family variant of ``name`` the CPU tests run."""
+    return _load(name).reduced()
+
+
+def all_configs() -> dict[str, ModelConfig]:
+    """Every ported architecture's published configuration."""
+    return {name: get(name) for name in ARCHS if name not in NOT_PORTED}
+
+
+__all__ = ["ARCHS", "NOT_PORTED", "all_configs", "get", "get_reduced"]

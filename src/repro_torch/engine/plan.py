@@ -52,16 +52,17 @@ _UNPORTED_BACKENDS = {
 
 
 def resolve_device(device) -> torch.device:
-    """The device a plan's carry lives on.  ``"cuda"`` (the default of
-    every entry point) must exist: on a host without CUDA this raises
-    instead of quietly running somewhere else — ask for ``"cpu"``
-    explicitly to run the plain PyTorch fold."""
+    """The device a plan's carry (or a model's parameters and cache)
+    lives on.  ``"cuda"`` (the default of every entry point) must exist:
+    on a host without CUDA this raises instead of quietly running
+    somewhere else — ask for ``"cpu"`` explicitly to run the kernels'
+    plain PyTorch versions."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             f"device={str(device)!r} was requested but torch reports no CUDA "
-            f"device on this host; pass device='cpu' to run the plain "
-            f"PyTorch fold on the CPU")
+            f"device on this host; pass device='cpu' to run the kernels' "
+            f"plain PyTorch versions on the CPU")
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {str(device)!r} (cuda or cpu)")
     return dev

@@ -1,0 +1,228 @@
+"""The flash attention wrappers: prefill attention and split-K decode.
+
+``attention(q, k, v, ...)`` and ``decode_attention(q, k_cache, v_cache,
+lengths, ...)`` are what ``repro_torch.models.attention`` calls, in the
+JAX package's layouts.  Where they run follows the tensors the caller
+gives them:
+
+* CUDA tensors launch the hand-written kernels
+  (``csrc/flash_attention.cu``, built with ``nvcc`` at first use) on the
+  current stream, or raise — a failed build, a refused launch or an
+  unsupported dtype or shape is an error, never a reason to compute the
+  attention some other way;
+* CPU tensors run the plain PyTorch versions (``ref.py``):
+  ``chunked_attention`` for the forward, ``decode_ref`` for decode.
+
+``attention.launches`` and ``decode_attention.launches`` count kernel
+launches (one per call on the card; decode's combine pass is part of the
+same call), so a run can show that its main path went through them.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .._build import load_library
+from .ref import chunked_attention, decode_ref
+
+#: dtypes the kernels take, with their dtype code
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+#: the kernels hold D/32 dimensions per lane in registers, at most 8
+MAX_HEAD_DIM = 256
+#: decode keeps the q vectors of one GQA group in registers, at most 8
+MAX_GROUP = 8
+#: the fewest live keys a decode split is given
+MIN_SPLIT_KEYS = 64
+
+
+def library() -> ctypes.CDLL:
+    """The built kernels with their C signatures declared."""
+    lib = load_library("flash_attention")
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fwd, dec = lib.flash_attention_fwd_launch, lib.flash_decode_launch
+    if fwd.argtypes is None:
+        fwd.argtypes = [p, p, p, p] + [i] * 9 + [f, f, p]
+        fwd.restype = ctypes.c_int
+    if dec.argtypes is None:
+        dec.argtypes = [p] * 8 + [i] * 7 + [f, f, i, p]
+        dec.restype = ctypes.c_int
+    return lib
+
+
+def _check_dtypes(*tensors) -> None:
+    dtypes = {t.dtype for t in tensors}
+    if len(dtypes) > 1:
+        raise TypeError(f"attention inputs have mixed dtypes "
+                        f"{sorted(map(str, dtypes))}")
+    dtype = dtypes.pop()
+    if dtype not in _DTYPE_CODE:
+        raise TypeError(f"attention takes float32 or bfloat16 inputs, got "
+                        f"{dtype}")
+
+
+def _check_devices(*tensors) -> None:
+    devices = {t.device for t in tensors}
+    if len(devices) > 1:
+        raise ValueError(f"attention inputs lie on different devices: "
+                         f"{sorted(map(str, devices))}")
+
+
+def _check_heads(hq: int, hkv: int) -> None:
+    if hkv < 1 or hq % hkv:
+        raise ValueError(f"Hq={hq} is not a multiple of Hkv={hkv}")
+
+
+def _check_attention(q, k, v) -> None:
+    if q.dim() != 4 or k.dim() != 4 or tuple(k.shape) != tuple(v.shape):
+        raise ValueError(f"attention wants q (B, Hq, Sq, D) and k, v "
+                         f"(B, Hkv, Skv, D), got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    if q.shape[0] != k.shape[0] or q.shape[3] != k.shape[3]:
+        raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} differ "
+                         f"in batch or head dim")
+    _check_heads(q.shape[1], k.shape[1])
+    _check_devices(q, k, v)
+    _check_dtypes(q, k, v)
+
+
+def _window(window) -> int:
+    return int(window) if window is not None and window > 0 else 0
+
+
+def _softcap(softcap) -> float:
+    return float(softcap) if softcap is not None and softcap > 0 else 0.0
+
+
+def _attention_cuda(q, k, v, causal, window, softcap, scale):
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    if d > MAX_HEAD_DIM:
+        raise ValueError(f"the CUDA flash attention takes head_dim <= "
+                         f"{MAX_HEAD_DIM}, got {d}")
+    lib = library()
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    with torch.cuda.device(q.device):
+        out = torch.empty_like(q)
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.flash_attention_fwd_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, hq,
+            hkv, sq, skv, d, _DTYPE_CODE[q.dtype], int(bool(causal)),
+            _window(window), _softcap(softcap), float(scale), stream)
+    if err != 0:
+        raise RuntimeError(f"flash attention launch failed: CUDA error "
+                           f"{err}")
+    attention.launches += 1
+    return out
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True, window: int | None = None,
+              softcap: float | None = None,
+              scale: float | None = None) -> torch.Tensor:
+    """Attention forward: q (B, Hq, Sq, D) against k, v (B, Hkv, Skv, D)
+    → (B, Hq, Sq, D) in q's dtype.
+
+    GQA by head grouping (Hq % Hkv == 0); ``causal`` masks keys after the
+    query (query i and key j both count from 0); ``window`` (None or 0 =
+    global) keeps keys with i - j < window; ``softcap`` maps scores to
+    c·tanh(s/c); ``scale`` defaults to D**-0.5.  float32 or bfloat16, all
+    on one device."""
+    _check_attention(q, k, v)
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    if q.device.type == "cpu":
+        return chunked_attention(q, k, v, causal=causal,
+                                 window=window or None, softcap=softcap,
+                                 scale=scale)
+    return _attention_cuda(q, k, v, causal, window, softcap, scale)
+
+
+attention.launches = 0
+
+
+def _check_decode(q, k_cache, v_cache, lengths) -> None:
+    if q.dim() != 3 or k_cache.dim() != 4 or \
+            tuple(k_cache.shape) != tuple(v_cache.shape):
+        raise ValueError(f"decode wants q (B, Hq, D) and caches "
+                         f"(B, Hkv, S, D), got {tuple(q.shape)}, "
+                         f"{tuple(k_cache.shape)}, {tuple(v_cache.shape)}")
+    if q.shape[0] != k_cache.shape[0] or q.shape[2] != k_cache.shape[3]:
+        raise ValueError(f"q {tuple(q.shape)} and the cache "
+                         f"{tuple(k_cache.shape)} differ in batch or head "
+                         f"dim")
+    if tuple(lengths.shape) != (q.shape[0],):
+        raise ValueError(f"lengths must be (B,) = ({q.shape[0]},), got "
+                         f"{tuple(lengths.shape)}")
+    _check_heads(q.shape[1], k_cache.shape[1])
+    _check_devices(q, k_cache, v_cache, lengths)
+    _check_dtypes(q, k_cache, v_cache)
+
+
+def n_splits_for(batch: int, kv_heads: int, s_max: int, sms: int) -> int:
+    """How many blocks share one (batch row, kv head)'s cache: enough for
+    two blocks per SM, but no split shorter than ``MIN_SPLIT_KEYS`` keys of
+    the longest possible cache."""
+    want = -(-2 * sms // max(batch * kv_heads, 1))
+    cap = max(1, -(-s_max // MIN_SPLIT_KEYS))
+    return max(1, min(want, cap))
+
+
+def _decode_cuda(q, k_cache, v_cache, lengths, window, softcap, scale):
+    b, hq, d = q.shape
+    hkv, s_max = k_cache.shape[1], k_cache.shape[2]
+    if d > MAX_HEAD_DIM:
+        raise ValueError(f"the CUDA decode takes head_dim <= "
+                         f"{MAX_HEAD_DIM}, got {d}")
+    if hq // hkv > MAX_GROUP:
+        raise ValueError(f"the CUDA decode takes GQA groups of at most "
+                         f"{MAX_GROUP} q heads, got {hq // hkv}")
+    lib = library()
+    q = q.contiguous()
+    k_cache, v_cache = k_cache.contiguous(), v_cache.contiguous()
+    lengths = lengths.to(torch.int32).contiguous()
+    with torch.cuda.device(q.device):
+        sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+        splits = n_splits_for(b, hkv, s_max, sms)
+        out = torch.empty_like(q)
+        part_m = torch.empty((b, hq, splits), dtype=torch.float32,
+                             device=q.device)
+        part_l = torch.empty_like(part_m)
+        part_acc = torch.empty((b, hq, splits, d), dtype=torch.float32,
+                               device=q.device)
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.flash_decode_launch(
+            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+            lengths.data_ptr(), out.data_ptr(), part_m.data_ptr(),
+            part_l.data_ptr(), part_acc.data_ptr(), b, hq, hkv, s_max, d,
+            _DTYPE_CODE[q.dtype], _window(window), _softcap(softcap),
+            float(scale), splits, stream)
+    if err != 0:
+        raise RuntimeError(f"flash decode launch failed: CUDA error {err}")
+    decode_attention.launches += 1
+    return out
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, lengths: torch.Tensor, *,
+                     window: int | None = None,
+                     softcap: float | None = None,
+                     scale: float | None = None) -> torch.Tensor:
+    """One query token per row against a KV cache: q (B, Hq, D), caches
+    (B, Hkv, S, D), lengths (B,) → (B, Hq, D) in q's dtype.
+
+    Row b sees cache positions [max(0, lengths[b] - window),
+    min(lengths[b], S)) (``window`` None or 0 = all of [0, lengths[b])).
+    float32 or bfloat16, all on one device; lengths stay on the device."""
+    _check_decode(q, k_cache, v_cache, lengths)
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    if q.device.type == "cpu":
+        return decode_ref(q, k_cache, v_cache, lengths,
+                          window=window or None, softcap=softcap,
+                          scale=scale)
+    return _decode_cuda(q, k_cache, v_cache, lengths, window, softcap, scale)
+
+
+decode_attention.launches = 0
+
+__all__ = ["attention", "decode_attention", "library", "n_splits_for"]

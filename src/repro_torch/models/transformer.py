@@ -1,0 +1,227 @@
+"""Model assembly: init / forward / loss / prefill / decode.
+
+The partner of ``repro/models/transformer.py`` for the dense attention
+family (``layer_kind == "attn"`` without experts): gemma2-9b, qwen3-32b,
+stablelm-12b and yi-34b.  The MoE, mamba1, mamba2 and shared-attention
+branches raise ``NotImplementedError`` naming their ``ROADMAP.md`` item.
+
+Parameters are nested dicts of tensors with the reference's keys, except
+that ``params["layers"]`` is a Python list of per-layer dicts where the
+reference stacks a leading L axis for ``lax.scan``: the scan becomes a
+loop over that list (``models.convert.params_from_reference`` unstacks a
+reference tree).  The serving cache keeps the reference's layout — k and
+v are (L, B, Hkv, max_len, hd) tensors, lengths (B,) int32 — and decode
+writes each step's k and v into it in place (JAX's functional update
+becomes an in-place write on one device).
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+import torch.nn.functional as F
+
+from ..engine.plan import not_ported, resolve_device
+from .attention import attn_decode, attn_forward, attn_init, window_schedule
+from .config import ModelConfig
+from .layers import (Params, embed, embed_init, glu_mlp, glu_mlp_init,
+                     layernorm, rmsnorm, unembed)
+
+
+def check_ported(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` for a family the port does not run."""
+    if cfg.layer_kind == "mamba1":
+        raise not_ported(f"{cfg.name}: mamba1 layers", "Queue A #13b")
+    if cfg.layer_kind == "mamba2" or cfg.shared_attn_every > 0:
+        raise not_ported(f"{cfg.name}: mamba2 layers and shared attention",
+                         "Queue A #13d")
+    if cfg.is_moe:
+        raise not_ported(f"{cfg.name}: mixture-of-experts layers",
+                         "Queue A #13c")
+    if cfg.input_mode != "tokens":
+        raise not_ported(f"{cfg.name}: embedding inputs", "Queue A #13e")
+    if cfg.layer_kind != "attn":
+        raise ValueError(cfg.layer_kind)
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+def _norm_init(cfg: ModelConfig, device) -> Params:
+    dt = cfg.param_dtype_
+    if cfg.norm == "layernorm":
+        return {"w": torch.ones((cfg.d_model,), dtype=dt, device=device),
+                "b": torch.zeros((cfg.d_model,), dtype=dt, device=device)}
+    base = torch.zeros if cfg.norm_offset else torch.ones
+    return {"w": base((cfg.d_model,), dtype=dt, device=device)}
+
+
+def _apply_norm(p: Params, x: torch.Tensor, cfg: ModelConfig):
+    if cfg.norm == "layernorm":
+        return layernorm(p["w"], p["b"], x, cfg.norm_eps)
+    return rmsnorm(p["w"], x, cfg.norm_eps, cfg.norm_offset)
+
+
+def _layer_init(gen: torch.Generator, cfg: ModelConfig) -> Params:
+    p: Params = {"norm1": _norm_init(cfg, gen.device),
+                 "attn": attn_init(gen, cfg),
+                 "norm2": _norm_init(cfg, gen.device),
+                 "ffn": glu_mlp_init(gen, cfg.d_model, cfg.d_ff,
+                                     cfg.param_dtype_)}
+    if cfg.post_block_norm:
+        p["post_norm1"] = _norm_init(cfg, gen.device)
+        p["post_norm2"] = _norm_init(cfg, gen.device)
+    return p
+
+
+def init_params(seed: int, cfg: ModelConfig, *, device="cuda") -> Params:
+    """Random parameters for ``cfg`` on ``device`` (default the card; on
+    a host without CUDA, ask for ``device="cpu"``), drawn from a
+    ``torch.Generator`` on that device seeded with ``seed``."""
+    check_ported(cfg)
+    gen = torch.Generator(device=resolve_device(device)).manual_seed(seed)
+    p: Params = {
+        "embed": embed_init(gen, cfg.vocab, cfg.d_model, cfg.param_dtype_),
+        "final_norm": _norm_init(cfg, gen.device),
+        "layers": [_layer_init(gen, cfg) for _ in range(cfg.n_layers)],
+    }
+    if not cfg.tie_embeddings:
+        p["lm_head"] = embed_init(gen, cfg.vocab, cfg.d_model,
+                                  cfg.param_dtype_).T.contiguous()
+    return p
+
+
+# ---------------------------------------------------------------------------
+# blocks
+# ---------------------------------------------------------------------------
+
+def _ffn_half(lp: Params, x: torch.Tensor, cfg: ModelConfig):
+    h = _apply_norm(lp["norm2"], x, cfg)
+    f = glu_mlp(lp["ffn"], h, cfg.activation, cfg.compute_dtype_)
+    if cfg.post_block_norm:
+        f = _apply_norm(lp["post_norm2"], f, cfg)
+    return x + f
+
+
+def _attn_block(lp: Params, x: torch.Tensor, cfg: ModelConfig, *,
+                window: int, return_kv: bool = False):
+    """Pre-norm attention and MLP with gemma2's sandwich norms."""
+    h = _apply_norm(lp["norm1"], x, cfg)
+    a, kv = attn_forward(lp["attn"], h, cfg, window=window, return_kv=True)
+    if cfg.post_block_norm:
+        a = _apply_norm(lp["post_norm1"], a, cfg)
+    x = _ffn_half(lp, x + a, cfg)
+    return (x, kv) if return_kv else x
+
+
+def _embed_inputs(params: Params, inputs: torch.Tensor, cfg: ModelConfig):
+    scale = cfg.d_model ** 0.5 if cfg.embed_scale else None
+    return embed(params["embed"], inputs, scale, cfg.compute_dtype_)
+
+
+def _logits(params: Params, x: torch.Tensor, cfg: ModelConfig):
+    x = _apply_norm(params["final_norm"], x, cfg)
+    table = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+    return unembed(table, x, tied=cfg.tie_embeddings,
+                   softcap=cfg.final_softcap)
+
+
+# ---------------------------------------------------------------------------
+# forward / loss
+# ---------------------------------------------------------------------------
+
+def forward(params: Params, inputs: torch.Tensor, cfg: ModelConfig):
+    """inputs: (B, S) token ids.  Returns (logits (B, S, vocab) float32,
+    aux loss) — aux is 0 for the dense family."""
+    check_ported(cfg)
+    x = _embed_inputs(params, inputs, cfg)
+    for lp, w in zip(params["layers"], window_schedule(cfg)):
+        x = _attn_block(lp, x, cfg, window=w)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return _logits(params, x, cfg), aux
+
+
+def loss_fn(params: Params, batch: dict[str, torch.Tensor],
+            cfg: ModelConfig):
+    """batch: {"inputs": (B, S), "labels": (B, S)}; labels < 0 are
+    ignored.  Returns (loss, metrics)."""
+    logits, aux = forward(params, batch["inputs"], cfg)
+    labels = batch["labels"]
+    mask = (labels >= 0).float()
+    logp = F.log_softmax(logits, dim=-1)
+    nll = -logp.gather(-1, labels.clamp(min=0).long()[..., None])[..., 0]
+    ce = (nll * mask).sum() / mask.sum().clamp(min=1.0)
+    loss = ce + aux
+    return loss, {"loss": loss, "ce": ce, "aux": aux, "tokens": mask.sum()}
+
+
+# ---------------------------------------------------------------------------
+# serving: cache init / prefill / decode
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
+               device="cuda") -> dict[str, Any]:
+    """Serving state: zeroed k and v caches (L, B, Hkv, max_len, hd) in
+    the compute dtype and lengths (B,) int32, on ``device``."""
+    check_ported(cfg)
+    dev = resolve_device(device)
+    shape = (cfg.n_layers, batch, cfg.n_kv_heads, max_len, cfg.head_dim_)
+    return {"lengths": torch.zeros((batch,), dtype=torch.int32, device=dev),
+            "k": torch.zeros(shape, dtype=cfg.compute_dtype_, device=dev),
+            "v": torch.zeros(shape, dtype=cfg.compute_dtype_, device=dev)}
+
+
+def decode_step(params: Params, cache: dict[str, Any], token: torch.Tensor,
+                cfg: ModelConfig):
+    """One serving step: token (B, 1) ids → (logits (B, vocab) float32,
+    cache).  The returned cache holds the same
+    k and v tensors, written in place at each row's length, and lengths
+    + 1."""
+    check_ported(cfg)
+    x = _embed_inputs(params, token, cfg)
+    lengths = cache["lengths"]
+    for i, (lp, w) in enumerate(zip(params["layers"], window_schedule(cfg))):
+        h = _apply_norm(lp["norm1"], x, cfg)
+        a, _, _ = attn_decode(lp["attn"], h, cfg, window=w,
+                              k_cache=cache["k"][i], v_cache=cache["v"][i],
+                              lengths=lengths)
+        if cfg.post_block_norm:
+            a = _apply_norm(lp["post_norm1"], a, cfg)
+        x = _ffn_half(lp, x + a, cfg)
+    logits = _logits(params, x[:, 0], cfg)
+    return logits, dict(cache, lengths=lengths + 1)
+
+
+def prefill_forward(params: Params, inputs: torch.Tensor, cfg: ModelConfig,
+                    max_len: int):
+    """One forward pass over the prompt that also fills the serving cache.
+
+    inputs: (B, S) tokens.  Returns (last_logits
+    (B, vocab), cache) with caches of ``max_len`` positions, the prompt's
+    k and v in the first S."""
+    check_ported(cfg)
+    b, s = inputs.shape[0], inputs.shape[1]
+    x = _embed_inputs(params, inputs, cfg)
+    cache = init_cache(cfg, b, max_len, device=x.device)
+    for i, (lp, w) in enumerate(zip(params["layers"], window_schedule(cfg))):
+        x, (k, v) = _attn_block(lp, x, cfg, window=w, return_kv=True)
+        cache["k"][i, :, :, :s] = k
+        cache["v"][i, :, :, :s] = v
+    cache["lengths"].fill_(s)
+    return _logits(params, x[:, -1], cfg), cache
+
+
+def prefill(params: Params, cache: dict[str, Any], tokens: torch.Tensor,
+            cfg: ModelConfig):
+    """Fill the cache by running ``decode_step`` over the prompt, one
+    token at a time.  tokens: (B, S).  Returns (last_logits, cache)."""
+    logits = None
+    for t in range(tokens.shape[1]):
+        logits, cache = decode_step(params, cache, tokens[:, t:t + 1], cfg)
+    return logits, cache
+
+
+__all__ = ["check_ported", "decode_step", "forward", "init_cache",
+           "init_params", "loss_fn", "prefill", "prefill_forward"]

@@ -2,8 +2,9 @@
 
 * ``repro_torch`` (and ``chip_smoke.py``) import torch and numpy, never
   JAX and nothing of the ``repro`` package — checked in a fresh
-  interpreter that builds and runs a streaming and an array pipeline,
-  and by a source scan.
+  interpreter that builds and runs a streaming and an array pipeline and
+  serves two requests on a reduced Gemma 2, and by a source scan of
+  every subpackage.
 * Entry points default to the card: on a host without CUDA a build that
   does not ask for ``device="cpu"`` raises.
 * The fold wrapper takes its plain version only for CPU tensors: any
@@ -44,6 +45,20 @@ array = (Pipeline.from_source(shards=shards).map(wordcount_map_factory(5))
          .reduce("sum").build(num_buckets=5, n_workers=4, device="cpu"))
 counts, stats = array.run()
 assert counts.tolist()[:5] == [13.0, 13.0, 13.0, 13.0, 12.0], counts
+import numpy as np
+from repro_torch import configs
+from repro_torch.launch.serve import BatchedServer, Request
+from repro_torch.models import init_params
+cfg = configs.get_reduced("gemma2-9b")
+server = BatchedServer(cfg, init_params(0, cfg, device="cpu"), 2, 32,
+                       device="cpu")
+reqs = [Request(id=i, prompt=np.arange(5, dtype=np.int32) + i, max_new=4)
+        for i in range(2)]
+for r in reqs:
+    server.submit(r)
+while any(server.slots) or server.queue:
+    server.step()
+assert all(r.done and len(r.tokens) == 5 for r in reqs), reqs
 loaded = sorted(m for m in sys.modules
                 if m == "jax" or m.startswith(("jax.", "jaxlib"))
                 or m == "repro" or m.startswith("repro."))
@@ -73,6 +88,9 @@ def test_sources_import_no_jax_and_no_reference():
     files = sorted((REPO / "src" / "repro_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 20
+    scanned = {p.relative_to(REPO / "src" / "repro_torch").parts[0]
+               for p in files[:-1]}
+    assert {"configs", "kernels", "launch", "models"} <= scanned
     for path in files:
         for name in _imports(path):
             root = name.split(".")[0]
@@ -99,6 +117,33 @@ def test_array_build_defaults_to_cuda_and_refuses_without_it(monkeypatch):
         pipe.build(num_buckets=8, n_workers=4)
     built = pipe.build(num_buckets=8, n_workers=4, device="cpu")
     assert built.device.type == "cpu" and built.is_array
+
+
+def test_model_and_server_default_to_cuda_and_refuse_without_it(
+        monkeypatch):
+    from repro_torch import configs
+    from repro_torch.launch.serve import BatchedServer
+    from repro_torch.models import init_cache, init_params
+    from repro_torch.models.convert import params_from_reference
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = configs.get_reduced("gemma2-9b")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_params(0, cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_cache(cfg, 1, 8)
+    params = init_params(0, cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        BatchedServer(cfg, params, 2, 16)
+    tree = {"embed": params["embed"].numpy(),
+            "final_norm": {"w": params["final_norm"]["w"].numpy()},
+            "layers": {"norm1": {"w": torch.stack(
+                [lp["norm1"]["w"] for lp in params["layers"]]).numpy()}}}
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        params_from_reference(tree, cfg)
+    assert params_from_reference(tree, cfg, device="cpu")["layers"][3][
+        "norm1"]["w"].shape == (cfg.d_model,)
+    assert BatchedServer(cfg, params, 2, 16, device="cpu").device.type == \
+        "cpu"
 
 
 _GEOMETRY = dict(fanout=2, n_slots=4, num_buckets=8, carry_buckets=8)
