@@ -91,7 +91,9 @@ card, phase by phase; any mismatch raises and the script exits non-zero:
    like its plain version and rounds once, so bfloat16 within atol 1e-4 +
    rtol 1e-2 and relative L2 5e-3, float32 as in phase 8.  The planted
    fault: row 0's first split of live V positions zeroed, as a kernel
-   that dropped that split would compute.  The same numbers.
+   that dropped that split would compute.  The same numbers.  Last, a
+   row of length 0 (outside the wrapper's contract, lengths >= 1): the
+   kernel must answer 0, as the reference's ``flash_decode`` does.
 10. Gemma 2 9B at full width (``configs.get("gemma2-9b")``: 42 layers,
    d_model 3584, 9,241,401,344 parameters in bfloat16, random weights
    from the seed — no checkpoint is in the repository): one 8,192-token
@@ -116,6 +118,51 @@ card, phase by phase; any mismatch raises and the script exits non-zero:
    the decode steps (admission included), forward launches = 42 x the
    prefills (none: admission runs decode steps); tokens/s and the share
    of the wall spent in admission.
+12. Selective scan vs plain: ``mamba_scan.ops.scan`` against
+   ``selective_scan_ref`` on the same card tensors over B in {1, 2, 4},
+   L in {1, 63, 777, 8191}, D in {128, 1000, 8192}, N in {4, 8, 16},
+   float32 and bfloat16, B and C as strided column slices of one
+   (B, L, 256 + 2N) tensor (the model's x_proj output) or contiguous, Δ =
+   |N(0, 1)|·0.1 + 0.01 and a random negative A (never the model's
+   -(1..N)); and the main shape (B = 1, L = D = 8192, N = 16, float32, Δ
+   log-uniform in [1e-3, 1e-1], a memory of up to 2,000 steps).
+   Tolerance (``SCAN_TOL``, about twice the card's readings): the kernel
+   takes exp(Δ·A) as exp2f of Δ times A·log2(e) (at most 2 ulp against
+   expf's 1 a step) and sums y over N in another order, so the float32
+   state drifts from the plain version's by a random walk over the
+   state's memory, 1/(Δ|A|) steps: relative L2 1e-6 on y and 2.5e-6 on
+   h_final, element by element atol + rtol (2e-5 + 1e-4 on y, 3e-6 + 1e-4
+   on h); bfloat16 inputs are upcast alike, and y rounds once, so one
+   bfloat16 step (rtol 1e-2, relative L2 6e-5).  Each case holds two
+   planted faults to the same limits and fails unless both are rejected:
+   the plain version with the state zeroed before a step in
+   mid-sequence (a carry lost across a 64-step chunk; not planted at L =
+   1, where it changes nothing) and with one channel's step skipped.
+   Per case: errors, the wrapper's time (CUDA events), the kernel's
+   device time (torch.profiler) and the bound (bytes, or the exp2 calls
+   over the special-function units); at the main shape the plain
+   version's time; no PyTorch call computes a selective scan, so there
+   is no library time.
+13. Falcon Mamba 7B at full width (``configs.get("falcon-mamba-7b")``: 64
+   Mamba-1 layers, d_model 4096, d_inner 8192, N = 16, 7,273,709,568
+   parameters in bfloat16, random weights from the seed) after Gemma's
+   are freed: one 8,192-token prompt through ``prefill_forward`` (64 scan
+   launches, counts set to 0 just before), then 16 greedy
+   ``decode_step``s (none: decode is the reference's plain recurrence).
+   The first and last layer's real scan inputs are captured and the
+   kernel held against the plain version on them (faults reported, not
+   required to fail).  The last prefill logits against decoding the last
+   token after an 8,191-token prefill (``MAMBA_LOGIT_TOL``), and every
+   layer's ssm and conv states after the prompt both ways
+   (``MAMBA_STATE_TOL``), with the kernel and again with the plain scan
+   in every layer (the second witness: the model's own bfloat16 floor),
+   and kernel against plain on each path.  Prefill tokens/s (cold and
+   warm), decode ms per step, a torch.profiler split of one prefill and
+   one decode step, peak device memory.
+14. Batched serving on Falcon Mamba 7B: ``BatchedServer`` as in phase 11;
+   every request drains, 256 tokens served, 0 scan launches (admission
+   runs decode steps, as in the reference); tokens/s and admission's
+   share of the wall.
 
 Before the last line it prints one JSON object ``{"kernels": [...]}``
 (per kernel: launches on its main path, error, kernel / plain / bound /
@@ -125,7 +172,10 @@ Exits non-zero without a result when torch sees no CUDA device or when the
 repository's sources are missing.  The kernels line's ``launches`` for the
 two attention kernels are phase 10's (its main path, counts set to 0 just
 before it); their times are the mean of the windowed and the global
-layer's shapes captured there.
+layer's shapes captured there.  The fifth entry, ``mamba_scan``, has
+phase 13's launches and the mean times of its first and last layer's
+captured shapes (``library_ms`` null: no PyTorch call computes a
+selective scan).
 """
 
 from __future__ import annotations
@@ -194,6 +244,41 @@ SERVE = {"slots": 4, "max_len": 128, "requests": 8, "prompt": 32,
 # / 0.0188 and kernel vs plain 0.1173 / 0.0208 (the floor of bfloat16
 # rounding carried through 42 layers)
 LOGIT_TOL = {"atol": 0.1, "rtol": 0.05, "max_abs": 0.25, "rel_l2": 0.04}
+# exp2 results per second on the special-function units: H100 SXM, 16 a
+# clock per SM (NVIDIA's CUDA documentation, arithmetic instruction
+# throughput), 132 SMs at the 1.98 GHz boost clock
+SFU_EXP_PER_S = 132 * 16 * 1.98e9
+SCAN_DT_RANK = 256              # falcon-mamba-7b's dt_rank: B, C row stride
+SCAN_REPS = 5
+# atol, rtol, relative L2 of kernel vs plain, for y and for h_final: about
+# twice the largest reading on the card (float32 y relative L2 4.8e-7 and
+# max |err| 6.7e-6 at RMS 1.18; h 1.1e-6 and 1.4e-6; bfloat16 y 2.7e-5,
+# one bf16 step)
+SCAN_TOL = {"float32": {"y": (2e-5, 1e-4, 1e-6), "h": (3e-6, 1e-4, 2.5e-6)},
+            "bfloat16": {"y": (1e-5, 1e-2, 6e-5),
+                         "h": (3e-6, 1e-4, 2.5e-6)}}
+SCAN_CASES = [  # batch, L, D, N, dtype, strided B and C
+    (1, 1, 128, 4, "float32", False),
+    (2, 63, 1000, 8, "float32", True),
+    (4, 63, 8192, 16, "bfloat16", False),
+    (1, 777, 128, 16, "bfloat16", True),
+    (4, 777, 1000, 4, "float32", False),
+    (2, 777, 8192, 8, "bfloat16", True),
+    (1, 8191, 1000, 16, "bfloat16", True),
+    (2, 8191, 128, 4, "float32", True),
+    (1, 8191, 8192, 16, "float32", True),
+]
+SCAN_MAIN = (1, 8192, 8192, 16, "float32", False)
+MAMBA = {"arch": "falcon-mamba-7b", "prompt": 8192, "decode_steps": 16}
+# Falcon Mamba prefill vs decode at full width: limits on the logits and
+# on every layer's SSM (float32) and conv (bfloat16) state, about twice the
+# largest gap read on the card — the plain scan in the kernel's place gave
+# the same gaps to the last bit (logits max |diff| 0.0950, relative L2
+# 0.0175; worst-layer state relative L2 0.0090 ssm, 0.0104 conv), so they
+# are the floor of the model's own bfloat16 path
+MAMBA_LOGIT_TOL = {"atol": 0.1, "rtol": 0.05, "max_abs": 0.2,
+                   "rel_l2": 0.035}
+MAMBA_STATE_TOL = {"ssm": 0.02, "conv": 0.021}  # relative L2, worst layer
 
 
 def _median_ms(fn, reps: int = REPS, warmup: int = 3) -> float:
@@ -1080,13 +1165,32 @@ def phase_flash_decode(torch, fa, fd_ref, device) -> float:
             torch, fa, fd_ref, q, kc, vc, lengths, window, cap, dtype, label,
             timed=_main_shape(b, hq, hkv, s_max, d))["max_abs_err"])
         del q, kc, vc
+    # outside the wrapper's contract (lengths >= 1): a row of length 0
+    # attends to no key, and the kernel answers 0 as the reference's
+    # flash_decode does (its plain version, the mean of V)
+    q, kc, vc = _fa_tensors(torch, rng, [(2, 4, 64), (2, 2, 128, 64),
+                                         (2, 2, 128, 64)], "float32", device)
+    lengths = torch.tensor([0, 5], dtype=torch.int32, device=device)
+    for window in (None, 3):
+        got = fa.decode_attention(q, kc, vc, lengths, window=window)
+        want = fd_ref(q, kc, vc, lengths, window=window)
+        if bool(got[0].any()) or not bool(torch.allclose(
+                got[1], want[1], rtol=1e-4, atol=1e-4)):
+            raise AssertionError(f"flash-decode length-0 row, window "
+                                 f"{window}: row 0 {got[0].abs().max()}, "
+                                 f"row 1 off by {(got[1] - want[1]).abs().max()}")
+    print("flash-decode length-0 row (q (2, 4, 64), caches (2, 2, 128, 64), "
+          "lengths [0, 5], window none and 3): the kernel gives 0 for row 0 "
+          "as the reference's flash_decode does; row 1 equals the plain "
+          "version", flush=True)
     return worst
 
 
 def _mean_times(a: dict, b: dict) -> dict:
     """Per-launch means over the windowed and the global layer's shapes."""
-    out = {key: (a[key] + b[key]) / 2 for key in
-           ("ms", "plain_ms", "bound_ms", "library_ms")}
+    out = {key: None if a[key] is None or b[key] is None
+           else (a[key] + b[key]) / 2
+           for key in ("ms", "plain_ms", "bound_ms", "library_ms")}
     out["max_abs_err"] = max(a["max_abs_err"], b["max_abs_err"])
     out["bound_by"] = a["bound_by"] if a["bound_by"] == b["bound_by"] \
         else "operations" if "operations" in (a["bound_by"], b["bound_by"]) \
@@ -1256,31 +1360,31 @@ def phase_gemma(torch, fa, fa_ref, fd_ref, device):
             _mean_times(*fwd_t), _mean_times(*dec_t))
 
 
-def phase_serving(torch, fa, params, cfg, device) -> None:
-    """Phase 11: BatchedServer at full width on 8 requests."""
+def _serve_requests(torch, params, cfg, device, seed):
+    """``BatchedServer`` on ``SERVE``'s requests until it drains: the
+    server and the run's numbers (wall, tokens served, batched steps,
+    admission steps and seconds)."""
     from repro_torch.launch.serve import BatchedServer, Request
     server = BatchedServer(cfg, params, SERVE["slots"], SERVE["max_len"],
                            device=device)
-    rng = np.random.default_rng(SEED + 11)
+    rng = np.random.default_rng(seed)
     reqs = [Request(id=i, prompt=rng.integers(0, cfg.vocab, SERVE["prompt"],
                                               dtype=np.int32),
                     max_new=SERVE["max_new"])
             for i in range(SERVE["requests"])]
     for r in reqs:
         server.submit(r)
-    admit, admitted = server._admit, {"s": 0.0, "steps": 0}
+    admit, run = server._admit, {"admit_s": 0.0, "admit_steps": 0}
 
     def timed_admit():
         t = time.perf_counter()
         waiting = len(server.queue)
         admit()
-        admitted["steps"] += (waiting - len(server.queue)) * (
+        run["admit_steps"] += (waiting - len(server.queue)) * (
             SERVE["prompt"] - 1)
-        admitted["s"] += time.perf_counter() - t
+        run["admit_s"] += time.perf_counter() - t
 
     server._admit = timed_admit
-    fa.attention.launches = 0
-    fa.decode_attention.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     served = batched = 0
@@ -1290,29 +1394,392 @@ def phase_serving(torch, fa, params, cfg, device) -> None:
         if batched > 10_000:
             raise AssertionError("serving did not drain")
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    fwd, dec = fa.attention.launches, fa.decode_attention.launches
-    decode_steps = batched + admitted["steps"]
+    run.update(wall=time.perf_counter() - t0, served=served, batched=batched)
+    del server._admit       # the closure held the server in a cycle
     want = SERVE["requests"] * SERVE["max_new"]
     if served != want or not all(r.done and len(r.tokens) == 1 +
                                  SERVE["max_new"] for r in reqs):
-        raise AssertionError(f"serving: {served} tokens served, want {want}")
+        raise AssertionError(f"serving {cfg.name}: {served} tokens served, "
+                             f"want {want}")
+    return server, run
+
+
+def _serve_text(cfg, run) -> str:
+    steps = run["batched"] + run["admit_steps"]
+    return (f"{SERVE['requests']} requests x {SERVE['max_new']} new tokens "
+            f"({SERVE['prompt']}-token prompts, {SERVE['slots']} slots, "
+            f"max_len {SERVE['max_len']}) at full width: {run['served']} "
+            f"tokens in {run['wall']:.3f} s = "
+            f"{run['served'] / run['wall']:.1f} tokens/s; {run['batched']} "
+            f"batched steps + {run['admit_steps']} admission steps = {steps} "
+            f"decode steps ({1e3 * run['wall'] / steps:.1f} ms each); "
+            f"admission {run['admit_s']:.3f} s = "
+            f"{100 * run['admit_s'] / run['wall']:.1f}% of the wall")
+
+
+def phase_serving(torch, fa, params, cfg, device) -> None:
+    """Phase 11: BatchedServer at full width on 8 requests."""
+    fa.attention.launches = 0
+    fa.decode_attention.launches = 0
+    server, run = _serve_requests(torch, params, cfg, device, SEED + 11)
+    fwd, dec = fa.attention.launches, fa.decode_attention.launches
+    decode_steps = run["batched"] + run["admit_steps"]
     if dec != cfg.n_layers * decode_steps or fwd != 0:
         raise AssertionError(f"serving: {dec} decode launches for "
                              f"{decode_steps} decode steps, {fwd} forward "
                              f"launches for no prefill")
     _profile_step(torch, lambda: server._admit_step(1, 0),
                   f"serving: one admission step (B={SERVE['slots']})")
-    print(f"serving: {SERVE['requests']} requests x {SERVE['max_new']} new "
-          f"tokens ({SERVE['prompt']}-token prompts, {SERVE['slots']} slots, "
-          f"max_len {SERVE['max_len']}) at full width: {served} tokens in "
-          f"{wall:.3f} s = {served / wall:.1f} tokens/s; {batched} batched "
-          f"steps + {admitted['steps']} admission steps = {decode_steps} "
-          f"decode steps ({1e3 * wall / decode_steps:.1f} ms each), {dec} "
-          f"flash decode launches (= {cfg.n_layers} x "
-          f"{decode_steps}), {fwd} flash forward launches; admission "
-          f"{admitted['s']:.3f} s = {100 * admitted['s'] / wall:.1f}% of the "
-          f"wall", flush=True)
+    print(f"serving: {_serve_text(cfg, run)}; {dec} flash decode launches "
+          f"(= {cfg.n_layers} x {decode_steps}), {fwd} flash forward "
+          f"launches", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# Phases 12-14: the Mamba-1 selective scan and Falcon Mamba 7B
+# ---------------------------------------------------------------------------
+
+def _scan_inputs(torch, gen, b, length, d, n, dtype, strided, device, *,
+                 model_delta=False):
+    """u, delta, A, B, C, D on the card from ``gen``.  Δ = |N(0, 1)|·0.1 +
+    0.01 and A = -(|N(0, 1)| + 0.5), as the reference's kernel tests draw
+    them; ``model_delta`` draws Δ log-uniform in [1e-3, 1e-1] instead, the
+    range of Falcon Mamba's initial step, where the state remembers up to
+    2,000 steps.  ``strided`` makes B and C column slices of one
+    (b, L, SCAN_DT_RANK + 2N) tensor, as the model's x_proj output is."""
+    cast = getattr(torch, dtype)
+    f = dict(device=device, generator=gen)
+    u = torch.randn(b, length, d, **f)
+    if model_delta:
+        lo, hi = np.log(1e-3), np.log(1e-1)
+        delta = torch.exp(torch.rand(b, length, d, **f) * (hi - lo) + lo)
+    else:
+        delta = torch.randn(b, length, d, **f).abs_().mul_(0.1).add_(0.01)
+    a = -(torch.randn(d, n, **f).abs_() + 0.5)
+    if strided:
+        dbc = torch.randn(b, length, SCAN_DT_RANK + 2 * n, **f).to(cast)
+        bm = dbc[..., SCAN_DT_RANK:SCAN_DT_RANK + n]
+        cm = dbc[..., SCAN_DT_RANK + n:]
+    else:
+        bm = torch.randn(b, length, n, **f).to(cast)
+        cm = torch.randn(b, length, n, **f).to(cast)
+    return u.to(cast), delta.to(cast), a, bm, cm, torch.randn(d, **f)
+
+
+def _scan_faults(torch, ref, x):
+    """The plain version with a planted fault: the state zeroed before a
+    step in mid-sequence (a carry lost across a 64-step chunk; none at L =
+    1, where it changes nothing), and one channel's step skipped (Δ = 0
+    there: the state passes through unchanged)."""
+    u, delta, a, bm, cm, dv = x
+    length, d = u.shape[1], u.shape[2]
+    faults = []
+    if length > 1:
+        t0 = max(1, (length // 2) // 64 * 64 if length >= 128
+                 else length // 2)
+        y1, _ = ref(u[:, :t0], delta[:, :t0], a, bm[:, :t0], cm[:, :t0], dv)
+        y2, h2 = ref(u[:, t0:], delta[:, t0:], a, bm[:, t0:], cm[:, t0:],
+                     dv)
+        faults.append((f"state zeroed before step {t0}",
+                       torch.cat([y1, y2], dim=1), h2))
+    t1, c1 = length // 2, d // 2
+    skipped = delta.clone()
+    skipped[:, t1, c1] = 0
+    yf, hf = ref(u, skipped, a, bm, cm, dv)
+    faults.append((f"channel {c1}'s step {t1} skipped", yf, hf))
+    return faults
+
+
+def _scan_bound_ms(x) -> tuple[float, str]:
+    """Least time for one scan on these inputs: u, delta, B, C, A and D
+    read once, y and h_final written once, over HBM bandwidth; against the
+    L·D·N exp2 calls over the special-function units' rate and the 5
+    float32 operations per (t, d, n) (Δ·A, the state's multiply-add, Δu·B,
+    the y multiply-add) over the float32 peak, whichever is larger."""
+    u, _, a, bm, _, dv = x
+    b, length, d = u.shape
+    n = a.shape[1]
+    es = u.element_size()
+    nbytes = ((3 * u.numel() + 2 * b * length * n) * es
+              + (a.numel() + dv.numel() + b * d * n) * 4)
+    work = b * length * d * n
+    by_bytes = nbytes / HBM_BYTES_PER_S
+    by_ops = max(work / SFU_EXP_PER_S, 5 * work / FP32_OPS_PER_S)
+    return max(by_bytes, by_ops) * 1e3, ("bytes" if by_bytes >= by_ops
+                                         else "operations")
+
+
+def _scan_case(torch, sc, ref, x, label, *, timed, must_reject=True) -> dict:
+    """Scan kernel vs plain on ``x`` = (u, delta, A, B, C, D): y and
+    h_final within ``SCAN_TOL``, and each planted fault held to the same
+    limits (rejected where ``must_reject``); the times.  The plain
+    version's time only where ``timed``: no single PyTorch call computes a
+    selective scan, so there is no library time."""
+    tol = SCAN_TOL[str(x[0].dtype).split(".")[-1]]
+    y, h = sc.scan(*x)
+    y_r, h_r = ref(*x)
+    ey, eh = _errors(torch, y, y_r, tol["y"]), _errors(torch, h, h_r, tol["h"])
+    if not (ey["ok"] and eh["ok"]):
+        raise AssertionError(
+            f"{label}: scan kernel != plain version: y max |err| "
+            f"{ey['max']:.3g} relative L2 {ey['rel_l2']:.3g}, h max |err| "
+            f"{eh['max']:.3g} relative L2 {eh['rel_l2']:.3g} (limits {tol})")
+    faults = []
+    for what, yf, hf in _scan_faults(torch, ref, x):
+        fy, fh = _errors(torch, yf, y_r, tol["y"]), _errors(torch, hf, h_r,
+                                                            tol["h"])
+        rejected = not (fy["ok"] and fh["ok"])
+        if must_reject and not rejected:
+            raise AssertionError(f"{label}: the limits {tol} pass the "
+                                 f"planted fault '{what}' (y max |err| "
+                                 f"{fy['max']:.3g}, relative L2 "
+                                 f"{fy['rel_l2']:.3g})")
+        faults.append(f"{what}: y {fy['max']:.3g} / {fy['rel_l2']:.3g}, h "
+                      f"{fh['max']:.3g} / {fh['rel_l2']:.3g} "
+                      f"{'rejected' if rejected else 'PASSES'}")
+    del y, h, y_r, h_r
+    ms = _median_ms(lambda: sc.scan(*x), reps=SCAN_REPS)
+    device_us = _device_us_per_call(torch, lambda: sc.scan(*x),
+                                    ("scan_fwd",), SCAN_REPS)
+    bound, by = _scan_bound_ms(x)
+    plain_ms = (_median_ms(lambda: ref(*x), reps=3, warmup=1) if timed
+                else None)
+    plain = (f"plain {plain_ms:.4f} ms, library: none (no PyTorch call "
+             f"computes a selective scan)" if timed
+             else "plain timed at the main shapes only")
+    print(f"mamba-scan {label}: y max |err| {ey['max']:.3g}, relative L2 "
+          f"{ey['rel_l2']:.3g} at RMS |want| {ey['rms']:.3g}; h max |err| "
+          f"{eh['max']:.3g}, relative L2 {eh['rel_l2']:.3g} at RMS "
+          f"{eh['rms']:.3g} (limits {tol}); planted faults, y / h max |err| "
+          f"/ relative L2: {'; '.join(faults)}; kernel {ms:.4f} ms per "
+          f"wrapper call (device time {device_us}), bound {bound:.4f} ms "
+          f"({by}), {plain}", flush=True)
+    return {"max_abs_err": max(ey["max"], eh["max"]), "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "library_ms": None}
+
+
+def _scan_label(x, strided) -> str:
+    u, a = x[0], x[2]
+    return (f"B={u.shape[0]} L={u.shape[1]} D={u.shape[2]} N={a.shape[1]} "
+            f"{str(u.dtype).split('.')[-1]}"
+            f"{' strided B/C (row stride %d)' % x[3].stride(1) if strided else ''}")
+
+
+def phase_scan(torch, sc, ref, device) -> float:
+    """Phase 12: the scan kernel vs its plain version over the sweep and at
+    the main shape.  Returns the largest absolute error."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 12)
+    worst = 0.0
+    for b, length, d, n, dtype, strided in SCAN_CASES + [SCAN_MAIN]:
+        main = (b, length, d, n, dtype, strided) == SCAN_MAIN
+        x = _scan_inputs(torch, gen, b, length, d, n, dtype, strided, device,
+                         model_delta=main)
+        label = _scan_label(x, strided) + (
+            " (main shape, Δ log-uniform in [1e-3, 1e-1])" if main else "")
+        worst = max(worst, _scan_case(torch, sc, ref, x, label,
+                                      timed=main)["max_abs_err"])
+        del x
+    return worst
+
+
+def _logit_gap(torch, what, got, want, tol, failures) -> None:
+    diff = (got - want).abs()
+    worst, rel = float(diff.max()), float(diff.norm() / want.norm())
+    print(f"falcon-mamba logits, {what}: max |diff| {worst:.4g}, relative "
+          f"L2 {rel:.3g} over |logits| <= {float(want.abs().max()):.4g} "
+          f"(limits {tol}); argmax {int(want.argmax())} / "
+          f"{int(got.argmax())}", flush=True)
+    if worst > tol["max_abs"] or rel > tol["rel_l2"] or bool(
+            (diff > tol["atol"] + tol["rtol"] * want.abs()).any()):
+        failures.append(f"logits, {what}: max |diff| {worst:.4g}, relative "
+                        f"L2 {rel:.3g}")
+
+
+def _state_gap(torch, what, got, want, tol, failures) -> None:
+    """Per-layer relative L2 of two caches' ssm and conv states; the worst
+    layer of each is held to ``tol``."""
+    for name in ("ssm", "conv"):
+        g, w = got["mamba"][name].float(), want["mamba"][name].float()
+        rel = [float((g[i] - w[i]).norm() / w[i].norm())
+               for i in range(g.shape[0])]
+        layer = int(np.argmax(rel))
+        print(f"falcon-mamba {name} states, {what}: worst layer {layer} "
+              f"relative L2 {rel[layer]:.3g} (limit {tol[name]}), median "
+              f"{statistics.median(rel):.3g}, max |diff| "
+              f"{float((g - w).abs().max()):.4g} over |state| <= "
+              f"{float(w.abs().max()):.4g}", flush=True)
+        if rel[layer] > tol[name]:
+            failures.append(f"{name} states, {what}: layer {layer} relative "
+                            f"L2 {rel[layer]:.3g}")
+
+
+def phase_falcon_mamba(torch, sc, ref, device):
+    """Phase 13: Falcon Mamba 7B at full width — prefill, decode, the
+    kernel on captured layer inputs, and prefill-then-decode agreement of
+    the logits and of every layer's states, with the plain scan as the
+    second witness.  Returns (params, cfg, scan launches, scan times)."""
+    from types import SimpleNamespace
+
+    from repro_torch import configs
+    from repro_torch.models import decode_step, init_params, prefill_forward
+    from repro_torch.models import mamba as mamba_mod
+
+    cfg = configs.get(MAMBA["arch"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(SEED, cfg, device=device)
+    torch.cuda.synchronize()
+    print(f"falcon-mamba: {cfg.name} at full width ({cfg.n_layers} layers, "
+          f"d_model {cfg.d_model}, d_inner {cfg.d_inner_}, N "
+          f"{cfg.ssm_state}, vocab {cfg.vocab}, {cfg.n_params()} "
+          f"parameters, {cfg.param_dtype}) with random weights from seed "
+          f"{SEED} in {time.perf_counter() - t0:.1f} s", flush=True)
+    rng = np.random.default_rng(SEED + 13)
+    n, steps = MAMBA["prompt"], MAMBA["decode_steps"]
+    max_len = n + steps
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (1, n),
+                                         dtype=np.int64)).to(device)
+
+    # capture the real scan inputs of the first and the last layer
+    keep = (0, cfg.n_layers - 1)
+    captured, calls = {}, [0]
+
+    def capture(*x):
+        if calls[0] in keep:
+            captured[calls[0]] = x
+        calls[0] += 1
+        return sc.scan(*x)
+
+    mamba_mod.scan_ops = SimpleNamespace(scan=capture,
+                                         decode_step=sc.decode_step)
+    try:
+        sc.scan.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        last, cache = prefill_forward(params, toks, cfg, max_len)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        prefill_launches = sc.scan.launches
+        token = last.argmax(dim=-1, keepdim=True)
+        t0 = time.perf_counter()
+        logits, cache = decode_step(params, cache, token, cfg)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        token = logits.argmax(dim=-1, keepdim=True)
+        t0 = time.perf_counter()
+        for _ in range(steps - 1):
+            logits, cache = decode_step(params, cache, token, cfg)
+            token = logits.argmax(dim=-1, keepdim=True)
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+        launches = sc.scan.launches
+    finally:
+        mamba_mod.scan_ops = sc
+    peak = torch.cuda.max_memory_allocated()
+    if prefill_launches != cfg.n_layers or launches != prefill_launches:
+        raise AssertionError(f"falcon-mamba: {prefill_launches} scan "
+                             f"launches in the prefill and "
+                             f"{launches - prefill_launches} in {steps} "
+                             f"decode steps, want {cfg.n_layers} and 0")
+    if not (bool(torch.isfinite(last).all())
+            and bool(torch.isfinite(logits).all())):
+        raise AssertionError("falcon-mamba: non-finite logits")
+    if tuple(last.shape) != (1, cfg.vocab) or int(
+            cache["lengths"][0]) != max_len:
+        raise AssertionError(f"falcon-mamba: logits {tuple(last.shape)}, "
+                             f"length {int(cache['lengths'][0])}")
+    print(f"falcon-mamba: first prefill of {n} tokens in {prefill_s:.4f} s "
+          f"= {n / prefill_s:.0f} tokens/s; first decode step "
+          f"{first_s:.4f} s (both include one-time library and allocator "
+          f"set-up); {steps - 1} further decode steps in {decode_s:.4f} s "
+          f"= {1e3 * decode_s / (steps - 1):.3f} ms per step (B=1, state "
+          f"after {n + 1}-{max_len - 1} tokens); {prefill_launches} scan "
+          f"launches in the prefill ({cfg.n_layers} layers), "
+          f"{launches - prefill_launches} in the decode steps (decode is "
+          f"plain tensor operations, as in the reference); peak device "
+          f"memory {peak / 2**30:.2f} GiB", flush=True)
+    del cache
+
+    # the kernel on the captured layer inputs (u is the conv output cast
+    # to float32, Δ float32, B and C float32 copies of x_proj's slices)
+    times = []
+    for layer in keep:
+        x = captured.pop(layer)
+        times.append(_scan_case(
+            torch, sc, ref, x, f"falcon-mamba layer {layer} prefill "
+            f"{_scan_label(x, False)}", timed=True, must_reject=False))
+        del x
+
+    # prefill-then-decode: the last prompt token's logits and the states
+    # after the whole prompt, both ways; then the same with the plain scan
+    # in the kernel's place
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, short = prefill_forward(params, toks[:, :-1], cfg, max_len)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    print(f"falcon-mamba: warm prefill of {n - 1} tokens in {warm_s:.4f} s "
+          f"= {(n - 1) / warm_s:.0f} tokens/s", flush=True)
+    out = {}
+    _profile_step(torch, lambda: out.update(
+        logits=decode_step(params, short, toks[:, -1:], cfg)[0]),
+        f"falcon-mamba: one decode step (B=1, state after {n - 1} tokens)")
+    via_decode = out["logits"]
+    last, full = prefill_forward(params, toks, cfg, max_len)
+    t0 = time.perf_counter()
+    mamba_mod.scan_ops = SimpleNamespace(scan=ref,
+                                         decode_step=sc.decode_step)
+    try:
+        plain_last, plain_full = prefill_forward(params, toks, cfg, max_len)
+        _, plain_short = prefill_forward(params, toks[:, :-1], cfg, max_len)
+        plain_via = decode_step(params, plain_short, toks[:, -1:], cfg)[0]
+    finally:
+        mamba_mod.scan_ops = sc
+    torch.cuda.synchronize()
+    print(f"falcon-mamba: the second witness (two prefills and a decode "
+          f"step with the plain scan in every layer) in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    failures = []
+    for what, got, want in (
+            (f"kernel: last prefill logits vs decoding the last token after "
+             f"a {n - 1}-token prefill", via_decode, last),
+            ("plain scan: the same (the model's own bfloat16 path)",
+             plain_via, plain_last),
+            (f"prefill of {n} tokens, kernel vs plain", last, plain_last),
+            (f"decode step after a {n - 1}-token prefill, kernel vs plain",
+             via_decode, plain_via)):
+        _logit_gap(torch, what, got, want, MAMBA_LOGIT_TOL, failures)
+    for what, got, want in (
+            (f"kernel: {n - 1}-token prefill + one decode step vs {n}-token "
+             f"prefill", short, full),
+            ("plain scan: the same", plain_short, plain_full),
+            (f"{n}-token prefill, kernel vs plain", full, plain_full)):
+        _state_gap(torch, what, got, want, MAMBA_STATE_TOL, failures)
+    if failures:
+        raise AssertionError("falcon-mamba: " + "; ".join(failures))
+    del short, full, plain_short, plain_full
+    _profile_step(torch, lambda: prefill_forward(params, toks[:, :-1], cfg,
+                                                 max_len),
+                  f"falcon-mamba: one prefill of {n - 1} tokens")
+    return params, cfg, launches, _mean_times(*times)
+
+
+def phase_mamba_serving(torch, sc, params, cfg, device) -> None:
+    """Phase 14: BatchedServer on Falcon Mamba 7B at full width."""
+    sc.scan.launches = 0
+    server, run = _serve_requests(torch, params, cfg, device, SEED + 14)
+    if sc.scan.launches != 0:
+        raise AssertionError(f"mamba serving: {sc.scan.launches} scan "
+                             f"launches, want 0 (admission runs decode "
+                             f"steps)")
+    _profile_step(torch, lambda: server._admit_step(1, 0),
+                  f"mamba serving: one admission step (B={SERVE['slots']})")
+    print(f"mamba serving: {_serve_text(cfg, run)}; 0 scan launches — "
+          f"admission and generation are decode steps, as in the "
+          f"reference, so the kernel is exercised by phases 12-13",
+          flush=True)
 
 
 def main() -> int:
@@ -1328,6 +1795,8 @@ def main() -> int:
     from repro_torch.kernels.flash_attention.ref import (chunked_attention,
                                                          decode_ref)
     from repro_torch.kernels.hash_combine.ref import hash_combine_ref
+    from repro_torch.kernels.mamba_scan import ops as sc
+    from repro_torch.kernels.mamba_scan.ref import selective_scan_ref
     from repro_torch.workloads import linear_road as lr
     from repro_torch.workloads import wordcount as wc
 
@@ -1341,13 +1810,15 @@ def main() -> int:
           f"{torch.version.cuda}")
 
     t0 = time.perf_counter()
-    _build.build_all(["fused_fold", "hash_combine", "flash_attention"])
-    print(f"fused_fold, hash_combine and flash_attention built together "
-          f"(nvcc, sm_90a, one process each) in "
+    _build.build_all(["fused_fold", "hash_combine", "flash_attention",
+                      "mamba_scan"])
+    print(f"fused_fold, hash_combine, flash_attention and mamba_scan built "
+          f"together (nvcc, sm_90a, one process each) in "
           f"{time.perf_counter() - t0:.1f} s")
     ops.library()
     hc.library()
     fa.library()
+    sc.library()
 
     worst = phase_kernel(torch, ops, fused_streaming_fold_ref, device)
     main_shape = phase_kernel_main_shape(torch, ops, fused_streaming_fold_ref,
@@ -1375,6 +1846,15 @@ def main() -> int:
         torch, fa, chunked_attention, decode_ref, device)
     torch.cuda.empty_cache()
     phase_serving(torch, fa, params, cfg, device)
+    del params
+    torch.cuda.empty_cache()
+
+    sc_worst = phase_scan(torch, sc, selective_scan_ref, device)
+    torch.cuda.empty_cache()
+    params, cfg, sc_launches, sc_shape = phase_falcon_mamba(
+        torch, sc, selective_scan_ref, device)
+    torch.cuda.empty_cache()
+    phase_mamba_serving(torch, sc, params, cfg, device)
     del params
 
     kernel = {"name": "fused_fold", "route": "cuda",
@@ -1405,7 +1885,13 @@ def main() -> int:
               "launches": fd_launches}
     decode.update(fd_shape)
     decode["max_abs_err"] = max(fd_worst, fd_shape["max_abs_err"])
-    print(json.dumps({"kernels": [kernel, combine, forward, decode]}))
+    scan = {"name": "mamba_scan", "route": "cuda",
+            "source": "src/repro_torch/kernels/mamba_scan/csrc/mamba_scan.cu",
+            "replaces": "src/repro/kernels/mamba_scan/kernel.py:33",
+            "launches": sc_launches}
+    scan.update(sc_shape)
+    scan["max_abs_err"] = max(sc_worst, sc_shape["max_abs_err"])
+    print(json.dumps({"kernels": [kernel, combine, forward, decode, scan]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -13,9 +13,13 @@ aggregate over an event log with exactly-once sinks::
       → CompiledStreamAggregate.step (the fused fold) → ObjectStore sink
 
 with the fused fold as a hand-written CUDA kernel
-(``kernels/fused_fold/csrc/fused_fold.cu``).  Entry points take a
+(``kernels/fused_fold/csrc/fused_fold.cu``).  Beside it: array (batch)
+pipelines with the ``hash_combine`` kernel, and LM serving
+(``models``, ``launch/serve.py``) for the dense attention family, with the
+``flash_attention`` kernels, and for Mamba-1 (falcon-mamba-7b), with the
+``mamba_scan`` kernel.  Entry points take a
 ``device`` and default to ``"cuda"``; a build on a host without CUDA
-raises unless the caller asks for ``device="cpu"``, where the fold runs
-its plain PyTorch version.  What is not ported yet raises
+raises unless the caller asks for ``device="cpu"``, where each kernel's
+wrapper runs its plain PyTorch version.  What is not ported yet raises
 ``NotImplementedError`` naming its ``ROADMAP.md`` item.
 """

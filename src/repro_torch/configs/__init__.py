@@ -3,7 +3,8 @@
 Each ported module defines ``CONFIG`` (the published configuration, copied
 from the reference) and ``reduced()`` (a tiny same-family variant for the
 CPU tests).  The port serves the dense token-input attention
-architectures; the other names stay in ``ARCHS``, and ``get`` /
+architectures and falcon-mamba-7b (Mamba-1); the other names stay in
+``ARCHS``, and ``get`` /
 ``get_reduced`` on them raise ``NotImplementedError`` naming the
 ``ROADMAP.md`` item that ports them.
 """
@@ -29,8 +30,6 @@ ARCHS = [
 
 #: architectures not ported yet → the ROADMAP item that ports them
 NOT_PORTED = {
-    "falcon-mamba-7b": "Queue A #13b (mamba1 layers and the mamba_scan "
-                       "kernel, Queue B #5)",
     "qwen2-moe-a2.7b": "Queue A #13c (models/moe.py)",
     "mixtral-8x7b": "Queue A #13c (models/moe.py)",
     "zamba2-1.2b": "Queue A #13d (mamba2 layers and the shared attention "

@@ -213,7 +213,13 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
 
     Row b sees cache positions [max(0, lengths[b] - window),
     min(lengths[b], S)) (``window`` None or 0 = all of [0, lengths[b])).
-    float32 or bfloat16, all on one device; lengths stay on the device."""
+    float32 or bfloat16, all on one device; lengths stay on the device.
+
+    Contract: lengths >= 1 (the model's ``attn_decode`` passes lengths +
+    1).  A row of length 0 attends to no key, and the two paths answer it
+    as their reference twins do: the plain version gives the mean of V
+    over all S rows (the reference's ``decode_ref``), the kernel gives 0
+    (the reference's ``flash_decode``).  Neither is a result to rely on."""
     _check_decode(q, k_cache, v_cache, lengths)
     scale = scale if scale is not None else q.shape[-1] ** -0.5
     if q.device.type == "cpu":

@@ -64,11 +64,26 @@ def _written_cells(cache: dict):
     return idx, k.gather(3, idx), cache["v"].gather(3, idx)
 
 
-def _restore_cells(cache: dict, saved, slot: int) -> None:
-    """Put the saved cells back on every lane but ``slot``: with
+def _saved_lanes(cache: dict):
+    """What the next decode step overwrites, as it holds now: the k and v
+    cells at each row's write position (``_written_cells``), or for a
+    mamba cache the whole conv and SSM states (a few MB a layer)."""
+    if "mamba" in cache:
+        return {name: t.clone() for name, t in cache["mamba"].items()}
+    return _written_cells(cache)
+
+
+def _restore_lanes(cache: dict, saved, slot: int) -> None:
+    """Put the saved values back on every lane but ``slot``: with
     ``_merge_slot`` on the lengths, this keeps only the admitted slot's
     lanes of a full-batch step, as the reference's merge of whole caches
-    does, without copying the caches."""
+    does — for k and v without copying the caches."""
+    if "mamba" in cache:
+        for name, old in saved.items():
+            cur = cache["mamba"][name]
+            others = torch.arange(cur.shape[1], device=cur.device) != slot
+            cur[:, others] = old[:, others]
+        return
     idx, k_old, v_old = saved
     others = torch.ones(idx.shape[1], dtype=torch.bool, device=idx.device)
     others[slot] = False
@@ -85,8 +100,10 @@ class BatchedServer:
 
     Admission keeps the reference's semantics: the prompt runs through
     full-batch decode steps (every slot's lanes compute), and only the
-    admitted slot's lanes are kept.  A slot's length carries over from
-    the request it held before, as in the reference."""
+    admitted slot's lanes are kept.  A slot's length — and for a Mamba-1
+    model its conv and SSM state — carries over from the request it held
+    before, and idle slots advance on token 0 in ``step``, as in the
+    reference."""
 
     def __init__(self, cfg, params, n_slots: int, max_len: int,
                  eos: int | None = None, *, device="cuda") -> None:
@@ -114,12 +131,12 @@ class BatchedServer:
         kept."""
         t = torch.full((self.n_slots, 1), token, dtype=torch.int32,
                        device=self.device)
-        saved = _written_cells(self.cache)
+        saved = _saved_lanes(self.cache)
         old_lengths = self.cache["lengths"]
         _, new = decode_step(self.params, self.cache, t, self.cfg)
         self.cache = dict(new, lengths=_merge_slot(new["lengths"],
                                                    old_lengths, slot))
-        _restore_cells(self.cache, saved, slot)
+        _restore_lanes(self.cache, saved, slot)
 
     def _admit(self) -> None:
         for i in range(self.n_slots):

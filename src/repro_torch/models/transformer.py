@@ -1,8 +1,9 @@
 """Model assembly: init / forward / loss / prefill / decode.
 
 The partner of ``repro/models/transformer.py`` for the dense attention
-family (``layer_kind == "attn"`` without experts): gemma2-9b, qwen3-32b,
-stablelm-12b and yi-34b.  The MoE, mamba1, mamba2 and shared-attention
+family (``layer_kind == "attn"`` without experts: gemma2-9b, qwen3-32b,
+stablelm-12b and yi-34b) and the Mamba-1 family (``layer_kind ==
+"mamba1"``: falcon-mamba-7b).  The MoE, mamba2 and shared-attention
 branches raise ``NotImplementedError`` naming their ``ROADMAP.md`` item.
 
 Parameters are nested dicts of tensors with the reference's keys, except
@@ -10,9 +11,11 @@ that ``params["layers"]`` is a Python list of per-layer dicts where the
 reference stacks a leading L axis for ``lax.scan``: the scan becomes a
 loop over that list (``models.convert.params_from_reference`` unstacks a
 reference tree).  The serving cache keeps the reference's layout — k and
-v are (L, B, Hkv, max_len, hd) tensors, lengths (B,) int32 — and decode
-writes each step's k and v into it in place (JAX's functional update
-becomes an in-place write on one device).
+v are (L, B, Hkv, max_len, hd) tensors, or for mamba1 ``cache["mamba"] =
+{"conv": (L, B, K-1, di), "ssm": (L, B, di, N) float32}``, and lengths
+(B,) int32 — and decode writes each step's k and v, or each layer's new
+conv and SSM state, into it in place (JAX's functional update becomes an
+in-place write on one device).
 """
 
 from __future__ import annotations
@@ -27,12 +30,12 @@ from .attention import attn_decode, attn_forward, attn_init, window_schedule
 from .config import ModelConfig
 from .layers import (Params, embed, embed_init, glu_mlp, glu_mlp_init,
                      layernorm, rmsnorm, unembed)
+from .mamba import (mamba1_decode, mamba1_forward, mamba1_init,
+                    mamba1_init_cache)
 
 
 def check_ported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for a family the port does not run."""
-    if cfg.layer_kind == "mamba1":
-        raise not_ported(f"{cfg.name}: mamba1 layers", "Queue A #13b")
     if cfg.layer_kind == "mamba2" or cfg.shared_attn_every > 0:
         raise not_ported(f"{cfg.name}: mamba2 layers and shared attention",
                          "Queue A #13d")
@@ -41,7 +44,7 @@ def check_ported(cfg: ModelConfig) -> None:
                          "Queue A #13c")
     if cfg.input_mode != "tokens":
         raise not_ported(f"{cfg.name}: embedding inputs", "Queue A #13e")
-    if cfg.layer_kind != "attn":
+    if cfg.layer_kind not in ("attn", "mamba1"):
         raise ValueError(cfg.layer_kind)
 
 
@@ -65,6 +68,9 @@ def _apply_norm(p: Params, x: torch.Tensor, cfg: ModelConfig):
 
 
 def _layer_init(gen: torch.Generator, cfg: ModelConfig) -> Params:
+    if cfg.layer_kind == "mamba1":
+        return {"norm1": _norm_init(cfg, gen.device),
+                "mixer": mamba1_init(gen, cfg)}
     p: Params = {"norm1": _norm_init(cfg, gen.device),
                  "attn": attn_init(gen, cfg),
                  "norm2": _norm_init(cfg, gen.device),
@@ -116,6 +122,14 @@ def _attn_block(lp: Params, x: torch.Tensor, cfg: ModelConfig, *,
     return (x, kv) if return_kv else x
 
 
+def _mamba_block(lp: Params, x: torch.Tensor, cfg: ModelConfig):
+    """Pre-norm Mamba-1 mixer with a residual, and the mixer's state after
+    the sequence."""
+    h = _apply_norm(lp["norm1"], x, cfg)
+    y, state = mamba1_forward(lp["mixer"], h, cfg)
+    return x + y, state
+
+
 def _embed_inputs(params: Params, inputs: torch.Tensor, cfg: ModelConfig):
     scale = cfg.d_model ** 0.5 if cfg.embed_scale else None
     return embed(params["embed"], inputs, scale, cfg.compute_dtype_)
@@ -134,11 +148,15 @@ def _logits(params: Params, x: torch.Tensor, cfg: ModelConfig):
 
 def forward(params: Params, inputs: torch.Tensor, cfg: ModelConfig):
     """inputs: (B, S) token ids.  Returns (logits (B, S, vocab) float32,
-    aux loss) — aux is 0 for the dense family."""
+    aux loss) — aux is 0 for the dense and Mamba-1 families."""
     check_ported(cfg)
     x = _embed_inputs(params, inputs, cfg)
-    for lp, w in zip(params["layers"], window_schedule(cfg)):
-        x = _attn_block(lp, x, cfg, window=w)
+    if cfg.layer_kind == "mamba1":
+        for lp in params["layers"]:
+            x, _ = _mamba_block(lp, x, cfg)
+    else:
+        for lp, w in zip(params["layers"], window_schedule(cfg)):
+            x = _attn_block(lp, x, cfg, window=w)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return _logits(params, x, cfg), aux
 
@@ -164,9 +182,19 @@ def loss_fn(params: Params, batch: dict[str, torch.Tensor],
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                device="cuda") -> dict[str, Any]:
     """Serving state: zeroed k and v caches (L, B, Hkv, max_len, hd) in
-    the compute dtype and lengths (B,) int32, on ``device``."""
+    the compute dtype — or for mamba1 the zeroed per-layer states
+    ``cache["mamba"]`` = {conv (L, B, K-1, di), ssm (L, B, di, N)
+    float32}, which do not grow with ``max_len`` — and lengths (B,) int32,
+    on ``device``."""
     check_ported(cfg)
     dev = resolve_device(device)
+    if cfg.layer_kind == "mamba1":
+        one = mamba1_init_cache(cfg, batch, device=dev)
+        return {"lengths": torch.zeros((batch,), dtype=torch.int32,
+                                       device=dev),
+                "mamba": {name: torch.zeros((cfg.n_layers,) + t.shape,
+                                            dtype=t.dtype, device=dev)
+                          for name, t in one.items()}}
     shape = (cfg.n_layers, batch, cfg.n_kv_heads, max_len, cfg.head_dim_)
     return {"lengths": torch.zeros((batch,), dtype=torch.int32, device=dev),
             "k": torch.zeros(shape, dtype=cfg.compute_dtype_, device=dev),
@@ -177,19 +205,31 @@ def decode_step(params: Params, cache: dict[str, Any], token: torch.Tensor,
                 cfg: ModelConfig):
     """One serving step: token (B, 1) ids → (logits (B, vocab) float32,
     cache).  The returned cache holds the same
-    k and v tensors, written in place at each row's length, and lengths
-    + 1."""
+    k and v tensors, written in place at each row's length (for mamba1 the
+    same conv and ssm tensors, each layer's new state written in place),
+    and lengths + 1."""
     check_ported(cfg)
     x = _embed_inputs(params, token, cfg)
     lengths = cache["lengths"]
-    for i, (lp, w) in enumerate(zip(params["layers"], window_schedule(cfg))):
-        h = _apply_norm(lp["norm1"], x, cfg)
-        a, _, _ = attn_decode(lp["attn"], h, cfg, window=w,
-                              k_cache=cache["k"][i], v_cache=cache["v"][i],
-                              lengths=lengths)
-        if cfg.post_block_norm:
-            a = _apply_norm(lp["post_norm1"], a, cfg)
-        x = _ffn_half(lp, x + a, cfg)
+    if cfg.layer_kind == "mamba1":
+        states = cache["mamba"]
+        for i, lp in enumerate(params["layers"]):
+            h = _apply_norm(lp["norm1"], x, cfg)
+            y, new = mamba1_decode(lp["mixer"], h, {
+                name: t[i] for name, t in states.items()}, cfg)
+            for name, t in new.items():
+                states[name][i] = t
+            x = x + y
+    else:
+        for i, (lp, w) in enumerate(zip(params["layers"],
+                                        window_schedule(cfg))):
+            h = _apply_norm(lp["norm1"], x, cfg)
+            a, _, _ = attn_decode(lp["attn"], h, cfg, window=w,
+                                  k_cache=cache["k"][i],
+                                  v_cache=cache["v"][i], lengths=lengths)
+            if cfg.post_block_norm:
+                a = _apply_norm(lp["post_norm1"], a, cfg)
+            x = _ffn_half(lp, x + a, cfg)
     logits = _logits(params, x[:, 0], cfg)
     return logits, dict(cache, lengths=lengths + 1)
 
@@ -200,15 +240,23 @@ def prefill_forward(params: Params, inputs: torch.Tensor, cfg: ModelConfig,
 
     inputs: (B, S) tokens.  Returns (last_logits
     (B, vocab), cache) with caches of ``max_len`` positions, the prompt's
-    k and v in the first S."""
+    k and v in the first S (for mamba1 each layer's conv and SSM state
+    after the prompt)."""
     check_ported(cfg)
     b, s = inputs.shape[0], inputs.shape[1]
     x = _embed_inputs(params, inputs, cfg)
     cache = init_cache(cfg, b, max_len, device=x.device)
-    for i, (lp, w) in enumerate(zip(params["layers"], window_schedule(cfg))):
-        x, (k, v) = _attn_block(lp, x, cfg, window=w, return_kv=True)
-        cache["k"][i, :, :, :s] = k
-        cache["v"][i, :, :, :s] = v
+    if cfg.layer_kind == "mamba1":
+        for i, lp in enumerate(params["layers"]):
+            x, state = _mamba_block(lp, x, cfg)
+            for name, t in state.items():
+                cache["mamba"][name][i] = t
+    else:
+        for i, (lp, w) in enumerate(zip(params["layers"],
+                                        window_schedule(cfg))):
+            x, (k, v) = _attn_block(lp, x, cfg, window=w, return_kv=True)
+            cache["k"][i, :, :, :s] = k
+            cache["v"][i, :, :, :s] = v
     cache["lengths"].fill_(s)
     return _logits(params, x[:, -1], cfg), cache
 

@@ -190,6 +190,35 @@ def test_plain_decode_bfloat16_matches_reference():
         **BF16)
 
 
+def _length_zero_row():
+    """The smallest input with a length-0 row: q (2, 4, 64), caches
+    (2, 2, 128, 64), lengths [0, 5]."""
+    rng = np.random.default_rng(12)
+    q, k, v = (_normal(rng, s) for s in ((2, 4, 64), (2, 2, 128, 64),
+                                         (2, 2, 128, 64)))
+    return q, k, v, np.array([0, 5], np.int32)
+
+
+@pytest.mark.parametrize("window", [None, 3])
+def test_plain_decode_at_a_length_zero_row_matches_reference(window):
+    """Outside the wrappers' contract (lengths >= 1): the plain version
+    answers a row that attends to no key as the reference's decode_ref
+    does, with the mean of V over every cache row; the other row is
+    unaffected."""
+    q, k, v, lens = _length_zero_row()
+    want = _np(jax_decode_ref(*map(jnp.asarray, (q, k, v, lens)),
+                              window=window))
+    got = _np(decode_ref(*map(torch.from_numpy, (q, k, v, lens)),
+                         window=window))
+    np.testing.assert_allclose(got, want, **F32)
+    np.testing.assert_allclose(got[0], np.repeat(v[0].mean(axis=1), 2, 0),
+                               **F32)
+    pallas = _np(flash_decode(*map(jnp.asarray, (q, k, v, lens)),
+                              window=window, interpret=True))
+    assert not pallas[0].any()
+    np.testing.assert_allclose(got[1], pallas[1], **F32)
+
+
 def test_cpu_wrappers_run_the_plain_versions_and_count_no_launch():
     rng = np.random.default_rng(2)
     q, k, v = (torch.from_numpy(_normal(rng, s))
@@ -339,3 +368,18 @@ def test_cuda_decode_matches_plain_version(cuda_device, dtype, window, cap):
     want = decode_ref(q, k, v, lens, window=window, softcap=cap)
     torch.cuda.synchronize()
     _assert_kernel_close(got, want, dtype, "decode")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [None, 3])
+def test_cuda_decode_at_a_length_zero_row_is_zero(cuda_device, window):
+    """Outside the contract (lengths >= 1): the kernel answers a row that
+    attends to no key with 0, as the reference's flash_decode does; the
+    other row matches the plain version."""
+    q, k, v, lens = (torch.from_numpy(a).to(cuda_device)
+                     for a in _length_zero_row())
+    got = ops.decode_attention(q, k, v, lens, window=window)
+    want = decode_ref(q, k, v, lens, window=window)
+    torch.cuda.synchronize()
+    assert not got[0].any()
+    torch.testing.assert_close(got[1], want[1], **F32)

@@ -3,8 +3,8 @@
 * ``repro_torch`` (and ``chip_smoke.py``) import torch and numpy, never
   JAX and nothing of the ``repro`` package — checked in a fresh
   interpreter that builds and runs a streaming and an array pipeline and
-  serves two requests on a reduced Gemma 2, and by a source scan of
-  every subpackage.
+  serves two requests each on a reduced Gemma 2 and a reduced Falcon
+  Mamba, and by a source scan of every subpackage.
 * Entry points default to the card: on a host without CUDA a build that
   does not ask for ``device="cpu"`` raises.
 * The fold wrapper takes its plain version only for CPU tensors: any
@@ -50,6 +50,16 @@ from repro_torch import configs
 from repro_torch.launch.serve import BatchedServer, Request
 from repro_torch.models import init_params
 cfg = configs.get_reduced("gemma2-9b")
+server = BatchedServer(cfg, init_params(0, cfg, device="cpu"), 2, 32,
+                       device="cpu")
+reqs = [Request(id=i, prompt=np.arange(5, dtype=np.int32) + i, max_new=4)
+        for i in range(2)]
+for r in reqs:
+    server.submit(r)
+while any(server.slots) or server.queue:
+    server.step()
+assert all(r.done and len(r.tokens) == 5 for r in reqs), reqs
+cfg = configs.get_reduced("falcon-mamba-7b")
 server = BatchedServer(cfg, init_params(0, cfg, device="cpu"), 2, 32,
                        device="cpu")
 reqs = [Request(id=i, prompt=np.arange(5, dtype=np.int32) + i, max_new=4)
