@@ -7,7 +7,9 @@ a directory ``.gitignore`` lists — the first time it is asked for, and
 loads the shared library with ``ctypes``.  The file name carries a hash of
 the source, so an edited kernel is rebuilt and a stale one never loads.
 ``build_all(names)`` builds several kernels at once, one ``nvcc`` each.
-Nothing here runs at import time: the CPU tests import every module, and
+``ptxas -v``'s report of every kernel's registers, spills and shared
+memory is kept beside the library (``build_log(name)``).  Nothing here
+runs at import time: the CPU tests import every module, and
 this host has no ``nvcc``.
 """
 
@@ -18,14 +20,17 @@ import functools
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import tempfile
 
 KERNELS_DIR = pathlib.Path(__file__).resolve().parent
 BUILD_DIR = KERNELS_DIR.parents[2] / "build" / "kernels"
+# -Xptxas=-v: ptxas reports each kernel's registers and spill bytes, which
+# the build keeps (a kernel that spills is a kernel to redesign)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 def source_path(name: str) -> pathlib.Path:
     """``kernels/<name>/csrc/<name>.cu``."""
@@ -78,15 +83,46 @@ def build_all(names) -> dict[str, pathlib.Path]:
                         name, tmp, out))
     failed = []
     for proc, name, tmp, out in running:
-        _, err = proc.communicate()
+        report, err = proc.communicate()
         if proc.returncode != 0:
             os.unlink(tmp)
             failed.append(f"nvcc failed for {source_path(name)}:\n{err}")
         else:
+            out.with_suffix(".log").write_text(report + err)
             os.replace(tmp, out)
     if failed:
         raise RuntimeError("\n".join(failed))
     return {name: _target(name) for name in names}
+
+
+def build_log(name: str) -> str:
+    """What ``nvcc`` and ``ptxas -v`` reported when kernel ``name``'s
+    current source was built ("" before its first build)."""
+    log = _target(name).with_suffix(".log")
+    return log.read_text() if log.is_file() else ""
+
+
+def ptxas_usage(report: str) -> dict[str, dict[str, int]]:
+    """Per kernel (mangled name) in a ``ptxas -v`` report: its
+    ``registers`` and its ``spill_stores`` and ``spill_loads`` in bytes."""
+    usage, current = {}, None
+    for line in report.splitlines():
+        entry = re.search(r"(?:Compiling entry function|Function properties "
+                          r"for) '?([\w$.]+)'?", line)
+        if entry:
+            current = usage.setdefault(entry.group(1), {})
+            continue
+        if current is None:
+            continue
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          line)
+        if spill:
+            current["spill_stores"] = int(spill.group(1))
+            current["spill_loads"] = int(spill.group(2))
+        regs = re.search(r"Used (\d+) registers", line)
+        if regs:
+            current["registers"] = int(regs.group(1))
+    return usage
 
 
 def build(name: str) -> pathlib.Path:

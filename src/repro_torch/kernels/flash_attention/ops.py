@@ -9,7 +9,9 @@ gives them:
   (``csrc/flash_attention.cu``, built with ``nvcc`` at first use) on the
   current stream, or raise — a failed build, a refused launch or an
   unsupported dtype or shape is an error, never a reason to compute the
-  attention some other way;
+  attention some other way.  The forward is ``fwd_wgmma`` (TMA loads,
+  wgmma products) for bfloat16 at head dims 64, 128 and 256, ``fwd_rows``
+  otherwise (``forward_kernel``);
 * CPU tensors run the plain PyTorch versions (``ref.py``):
   ``chunked_attention`` for the forward, ``decode_ref`` for decode.
 
@@ -31,6 +33,8 @@ from .ref import chunked_attention, decode_ref
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 #: the kernels hold D/32 dimensions per lane in registers, at most 8
 MAX_HEAD_DIM = 256
+#: the TMA reads q, k and v from 16-byte aligned addresses
+TMA_ALIGN = 16
 #: decode keeps the q vectors of one GQA group in registers, at most 8
 MAX_GROUP = 8
 #: the fewest live keys a decode split is given
@@ -42,6 +46,10 @@ def library() -> ctypes.CDLL:
     lib = load_library("flash_attention")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fwd, dec = lib.flash_attention_fwd_launch, lib.flash_decode_launch
+    tile = lib.flash_attention_fwd_tile
+    if tile.argtypes is None:
+        tile.argtypes = [i, i] + [ctypes.POINTER(i)] * 3
+        tile.restype = ctypes.c_int
     if fwd.argtypes is None:
         fwd.argtypes = [p, p, p, p] + [i] * 9 + [f, f, p]
         fwd.restype = ctypes.c_int
@@ -95,6 +103,36 @@ def _softcap(softcap) -> float:
     return float(softcap) if softcap is not None and softcap > 0 else 0.0
 
 
+def forward_tile(dtype: torch.dtype,
+                 head_dim: int) -> tuple[int, int, int] | None:
+    """``fwd_wgmma``'s tile at this dtype and head dim, as the built
+    library reports it: (query rows of a block, keys of a K/V tile, ring
+    slots per operand); None where the forward runs ``fwd_rows``."""
+    rows, keys, stages = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    if not library().flash_attention_fwd_tile(
+            head_dim, _DTYPE_CODE.get(dtype, -1), ctypes.pointer(rows),
+            ctypes.pointer(keys), ctypes.pointer(stages)):
+        return None
+    return rows.value, keys.value, stages.value
+
+
+def forward_kernel(dtype: torch.dtype, head_dim: int) -> str:
+    """The kernel a CUDA forward of this dtype and head dim launches:
+    ``fwd_wgmma`` (TMA and wgmma) where the library reports a tile for
+    it, ``fwd_rows`` (float32 FMAs) otherwise."""
+    return "fwd_rows" if forward_tile(dtype, head_dim) is None \
+        else "fwd_wgmma"
+
+
+def _tma_ready(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous and starting on a ``TMA_ALIGN``-byte boundary (a
+    view into a larger tensor may not): a copy where it is not."""
+    t = t.contiguous()
+    if t.data_ptr() % TMA_ALIGN:
+        t = t.clone()
+    return t
+
+
 def _attention_cuda(q, k, v, causal, window, softcap, scale):
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
@@ -102,7 +140,7 @@ def _attention_cuda(q, k, v, causal, window, softcap, scale):
         raise ValueError(f"the CUDA flash attention takes head_dim <= "
                          f"{MAX_HEAD_DIM}, got {d}")
     lib = library()
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    q, k, v = _tma_ready(q), _tma_ready(k), _tma_ready(v)
     with torch.cuda.device(q.device):
         out = torch.empty_like(q)
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -231,4 +269,5 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
 
 decode_attention.launches = 0
 
-__all__ = ["attention", "decode_attention", "library", "n_splits_for"]
+__all__ = ["attention", "decode_attention", "forward_kernel", "forward_tile",
+           "library", "n_splits_for"]

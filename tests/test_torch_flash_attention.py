@@ -23,6 +23,7 @@ so atol 1e-4 + rtol 1e-2 and the same relative L2 bound.
 """
 
 import ctypes
+import sys
 
 import jax.numpy as jnp
 import numpy as np
@@ -35,6 +36,7 @@ from repro.kernels.flash_attention.ops import \
     chunked_attention as jax_chunked
 from repro.kernels.flash_attention.ref import decode_ref as jax_decode_ref
 from repro.kernels.flash_attention.ref import mha_ref as jax_mha_ref
+from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import ops
 from repro_torch.kernels.flash_attention.ref import (chunked_attention,
                                                      decode_ref, mha_ref)
@@ -311,15 +313,19 @@ def test_library_signatures_pass_pointers_whole(monkeypatch):
 
     class Lib:
         flash_attention_fwd_launch = Fn()
+        flash_attention_fwd_tile = Fn()
         flash_decode_launch = Fn()
 
     monkeypatch.setattr(ops, "load_library", lambda name: Lib())
     lib = ops.library()
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fwd, dec = lib.flash_attention_fwd_launch, lib.flash_decode_launch
+    tile = lib.flash_attention_fwd_tile
     assert fwd.argtypes == [p] * 4 + [i] * 9 + [f, f, p]
     assert dec.argtypes == [p] * 8 + [i] * 7 + [f, f, i, p]
+    assert tile.argtypes == [i, i] + [ctypes.POINTER(i)] * 3
     assert fwd.restype is ctypes.c_int and dec.restype is ctypes.c_int
+    assert tile.restype is ctypes.c_int
 
 
 @pytest.mark.parametrize("b,hkv,smax,want", [
@@ -329,20 +335,117 @@ def test_decode_splits_fill_the_card_without_short_splits(b, hkv, smax, want):
     assert ops.n_splits_for(b, hkv, smax, sms=132) == want
 
 
+@pytest.mark.parametrize("dtype,d,reported", [
+    (torch.bfloat16, 256, (128, 80, 2)), (torch.float32, 64, None)])
+def test_forward_kernel_is_named_from_the_librarys_tile(monkeypatch, dtype,
+                                                        d, reported):
+    """``forward_tile`` passes the head dim and dtype code to the library
+    and reads the tile it writes back; ``forward_kernel`` names fwd_wgmma
+    exactly where the library reports a tile (a stand-in library here)."""
+    asked = []
+
+    def fwd_tile(head_dim, code, rows, keys, stages):
+        asked.append((head_dim, code))
+        if reported is None:
+            return 0
+        rows[0], keys[0], stages[0] = reported
+        return 1
+
+    class Lib:
+        flash_attention_fwd_tile = staticmethod(fwd_tile)
+
+    monkeypatch.setattr(ops, "library", lambda: Lib())
+    assert ops.forward_tile(dtype, d) == reported
+    assert ops.forward_kernel(dtype, d) == (
+        "fwd_rows" if reported is None else "fwd_wgmma")
+    assert asked == [(d, ops._DTYPE_CODE[dtype])] * 2
+
+
+def test_tma_ready_copies_only_unaligned_or_strided_tensors():
+    base = torch.arange(4 * 64 + 8, dtype=torch.bfloat16)
+    aligned = base[:256].view(4, 64)
+    assert aligned.data_ptr() % ops.TMA_ALIGN == 0
+    assert ops._tma_ready(aligned).data_ptr() == aligned.data_ptr()
+    shifted = base[1:257].view(4, 64)          # starts 2 bytes in
+    assert shifted.data_ptr() % ops.TMA_ALIGN
+    ready = ops._tma_ready(shifted)
+    assert ready.data_ptr() % ops.TMA_ALIGN == 0
+    assert ready.is_contiguous() and torch.equal(ready, shifted)
+    strided = aligned.t()
+    ready = ops._tma_ready(strided)
+    assert ready.is_contiguous() and torch.equal(ready, strided)
+
+
+PTXAS_REPORT = """\
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_19fwd_wgmmaILi256EEEv14CUtensorMap_stS1_S1_P13__nv_bfloat16iiiiiiiff' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_19fwd_wgmmaILi256EEEv14CUtensorMap_stS1_S1_P13__nv_bfloat16iiiiiiiff
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers, 1024 bytes smem, 1000 bytes cmem[0]
+ptxas info    : Compiling entry function '_Z8fwd_rowsPf' for 'sm_90a'
+ptxas info    : Function properties for _Z8fwd_rowsPf
+    8 bytes stack frame, 4 bytes spill stores, 12 bytes spill loads
+ptxas info    : Used 255 registers, 360 bytes cmem[0]
+"""
+
+
+def test_ptxas_usage_reads_registers_and_spills_per_kernel():
+    usage = _build.ptxas_usage(PTXAS_REPORT)
+    wgmma = next(v for k, v in usage.items() if "fwd_wgmmaILi256E" in k)
+    assert wgmma == {"registers": 168, "spill_stores": 0, "spill_loads": 0}
+    assert usage["_Z8fwd_rowsPf"] == {"registers": 255, "spill_stores": 4,
+                                      "spill_loads": 12}
+    assert _build.ptxas_usage("") == {}
+
+
+def test_build_keeps_the_compilers_report_beside_the_library(monkeypatch,
+                                                             tmp_path):
+    """The build passes ``-Xptxas=-v`` and keeps what the compiler said
+    next to the library it made (a stand-in compiler here)."""
+    fake = tmp_path / "nvcc"
+    fake.write_text(
+        f"#!{sys.executable}\n"
+        "import sys\n"
+        "args = sys.argv[1:]\n"
+        "assert '-Xptxas=-v' in args and 'arch=compute_90a,code=sm_90a' "
+        "in args\n"
+        "open(args[args.index('-o') + 1], 'w').write('library')\n"
+        f"sys.stderr.write({PTXAS_REPORT!r})\n")
+    fake.chmod(0o755)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "kernels")
+    monkeypatch.setattr(_build, "find_nvcc", lambda: str(fake))
+    assert _build.build_log("flash_attention") == ""
+    lib = _build.build("flash_attention")
+    assert lib.read_text() == "library"
+    assert _build.build_log("flash_attention") == PTXAS_REPORT
+    assert "fwd_wgmmaILi256E" in next(iter(_build.ptxas_usage(
+        _build.build_log("flash_attention"))))
+
+
 # ---------------------------------------------------------------------------
 # On the card (skipped on a host without CUDA)
 # ---------------------------------------------------------------------------
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,d,causal,window,cap", [
-    ("bfloat16", 256, True, 16, 50.0), ("bfloat16", 128, False, None, None),
-    ("bfloat16", 96, True, 64, 30.0), ("float32", 64, True, None, 50.0)])
-def test_cuda_forward_matches_plain_version(cuda_device, dtype, d, causal,
-                                            window, cap):
+@pytest.mark.parametrize("dtype,d,sq,skv,causal,window,cap", [
+    ("bfloat16", 256, 333, 333, True, 16, 50.0),
+    ("bfloat16", 128, 333, 333, False, None, None),
+    ("bfloat16", 96, 333, 333, True, 64, 30.0),
+    ("float32", 64, 333, 333, True, None, 50.0),
+    # fwd_wgmma: ragged Sq and Skv, windows below and above a key tile
+    ("bfloat16", 64, 1000, 777, True, 16, 50.0),
+    ("bfloat16", 64, 777, 1000, False, None, None),
+    ("bfloat16", 128, 1000, 1000, True, 4096, None),
+    ("bfloat16", 128, 129, 333, True, 16, 50.0),
+    ("bfloat16", 256, 1000, 1000, True, 4096, 50.0),
+    ("bfloat16", 256, 300, 10, True, 16, None),
+    ("bfloat16", 256, 333, 777, False, None, 50.0)])
+def test_cuda_forward_matches_plain_version(cuda_device, dtype, d, sq, skv,
+                                            causal, window, cap):
     rng = np.random.default_rng(d)
     q, k, v = (torch.from_numpy(_normal(rng, s)).to(cuda_device,
                                                     getattr(torch, dtype))
-               for s in ((2, 8, 333, d), (2, 4, 333, d), (2, 4, 333, d)))
+               for s in ((2, 8, sq, d), (2, 4, skv, d), (2, 4, skv, d)))
     kw = dict(causal=causal, window=window, softcap=cap)
     before = ops.attention.launches
     got = ops.attention(q, k, v, **kw)
@@ -350,6 +453,63 @@ def test_cuda_forward_matches_plain_version(cuda_device, dtype, d, causal,
     want = chunked_attention(q, k, v, **kw)
     torch.cuda.synchronize()
     _assert_kernel_close(got, want, dtype, "forward")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,d,want", [
+    (torch.bfloat16, 64, "fwd_wgmma"), (torch.bfloat16, 128, "fwd_wgmma"),
+    (torch.bfloat16, 256, "fwd_wgmma"), (torch.bfloat16, 96, "fwd_rows"),
+    (torch.bfloat16, 32, "fwd_rows"), (torch.float32, 64, "fwd_rows"),
+    (torch.float32, 256, "fwd_rows")])
+def test_forward_kernel_by_dtype_and_head_dim(cuda_device, dtype, d, want):
+    """bfloat16 at 64, 128 and 256 goes to the TMA/wgmma kernel; float32
+    and other head dims to the float32 FMA kernel."""
+    assert ops.forward_kernel(dtype, d) == want
+
+
+@pytest.mark.cuda
+def test_wgmma_tiles_fit_shared_memory(cuda_device):
+    """The tiles the library reports: Q's tile plus both rings fit the 227
+    KB a block may use at every head dim, and each suits wgmma and the
+    128-byte swizzle."""
+    for d in (64, 128, 256):
+        rows, keys, stages = ops.forward_tile(torch.bfloat16, d)
+        smem = 1024 + rows * d * 2 + 2 * stages * keys * d * 2 + 8 * (
+            1 + 4 * stages)
+        assert smem <= 232448, (d, smem)
+        assert rows == 128 and stages >= 2
+        assert keys % 16 == 0 and keys <= 256   # wgmma's N and k-steps
+        assert (keys * 128) % 1024 == 0
+
+
+@pytest.mark.cuda
+def test_cuda_forward_with_no_keys_writes_zeros(cuda_device):
+    """Skv = 0 (a TMA map has no empty dimension, so the launch writes the
+    zeros itself): every row attends to no key and is 0, as the plain
+    version gives."""
+    q = torch.ones(1, 4, 5, 128, device=cuda_device, dtype=torch.bfloat16)
+    kv = torch.zeros(1, 2, 0, 128, device=cuda_device, dtype=torch.bfloat16)
+    got = ops.attention(q, kv, kv)
+    torch.cuda.synchronize()
+    assert not got.any()
+    assert torch.equal(got, chunked_attention(q, kv, kv))
+
+
+@pytest.mark.cuda
+def test_cuda_forward_takes_unaligned_views(cuda_device):
+    """q, k and v as views 2 bytes into their storage: the TMA needs
+    16-byte aligned bases, so the wrapper copies them first."""
+    rng = np.random.default_rng(4)
+    flat = [torch.from_numpy(_normal(rng, (n + 1,))).to(cuda_device,
+                                                       torch.bfloat16)
+            for n in (2 * 4 * 200 * 128, 2 * 2 * 200 * 128,
+                      2 * 2 * 200 * 128)]
+    q, k, v = (x[1:].view(2, h, 200, 128) for x, h in zip(flat, (4, 2, 2)))
+    assert q.data_ptr() % ops.TMA_ALIGN
+    got = ops.attention(q, k, v, causal=True, softcap=50.0)
+    want = chunked_attention(q, k, v, causal=True, softcap=50.0)
+    torch.cuda.synchronize()
+    _assert_kernel_close(got, want, "bfloat16", "forward")
 
 
 @pytest.mark.cuda
