@@ -11,7 +11,11 @@ card, phase by phase; any mismatch raises and the script exits non-zero:
    kernel built from its ``src/repro_torch/kernels/<name>/csrc`` source
    with ``nvcc`` for ``sm_90a``, all builds started together; from
    ``ptxas -v``'s report, fwd_wgmma's registers and spill bytes at each
-   head dim (a spill fails the run) and ptxas's lines on serialised wgmma.
+   head dim (a spill fails the run) and ptxas's lines on serialised wgmma;
+   then scan_fwd's registers and spill bytes for each of its four
+   instantiations (float32 and bfloat16, cp.async pieces or plain loads),
+   the chunk geometry its library reports (``ops.scan_tile()``) and the
+   blocks an SM takes (a spill, or fewer than two blocks, fails the run).
 2. Kernel vs plain: the kernel's wrapper against its plain PyTorch version
    on the same card tensors, bit for bit (integer-valued data: float32
    sums below 2**24 are exact in any order, so the tolerance is zero), at
@@ -136,25 +140,33 @@ card, phase by phase; any mismatch raises and the script exits non-zero:
    float32 and bfloat16, B and C as strided column slices of one
    (B, L, 256 + 2N) tensor (the model's x_proj output) or contiguous, Δ =
    |N(0, 1)|·0.1 + 0.01 and a random negative A (never the model's
-   -(1..N)); and the main shape (B = 1, L = D = 8192, N = 16, float32, Δ
-   log-uniform in [1e-3, 1e-1], a memory of up to 2,000 steps).
-   Tolerance (``SCAN_TOL``, about twice the card's readings): the kernel
-   takes exp(Δ·A) as exp2f of Δ times A·log2(e) (at most 2 ulp against
-   expf's 1 a step) and sums y over N in another order, so the float32
-   state drifts from the plain version's by a random walk over the
-   state's memory, 1/(Δ|A|) steps: relative L2 1e-6 on y and 2.5e-6 on
-   h_final, element by element atol + rtol (2e-5 + 1e-4 on y, 3e-6 + 1e-4
-   on h); bfloat16 inputs are upcast alike, and y rounds once, so one
-   bfloat16 step (rtol 1e-2, relative L2 6e-5).  Each case holds two
-   planted faults to the same limits and fails unless both are rejected:
-   the plain version with the state zeroed before a step in
-   mid-sequence (a carry lost across a 64-step chunk; not planted at L =
-   1, where it changes nothing) and with one channel's step skipped.
-   Per case: errors, the wrapper's time (CUDA events), the kernel's
-   device time (torch.profiler) and the bound (bytes, or the exp2 calls
-   over the special-function units); at the main shape the plain
-   version's time; no PyTorch call computes a selective scan, so there
-   is no library time.
+   -(1..N)); then cases on the kernel's seams, from the geometry its
+   library reports (channels a block, steps a lane, steps a chunk): L
+   inside one lane segment, a chunk less one, a chunk and one, two chunks
+   and a segment and one, with D past a whole number of blocks (u's rows
+   16-byte aligned, so cp.async with a partial last piece, or not, so
+   plain loads); and the main shape (B = 1, L = D = 8192, N = 16,
+   float32, Δ log-uniform in [1e-3, 1e-1], a memory of up to 2,000
+   steps).  Tolerance (``SCAN_TOL``, about twice the card's readings): the
+   kernel takes exp(Δ·A) as exp2 of Δ times A·log2(e) (at most 2 ulp
+   against expf's 1 a step) and sums y over N in another order, so the
+   float32 state drifts from the plain version's by a random walk over
+   the state's memory, 1/(Δ|A|) steps: relative L2 1e-6 on y and 2.5e-6
+   on h_final, element by element atol + rtol (2e-5 + 1e-4 on y, 3e-6 +
+   1e-4 on h); bfloat16 inputs are upcast alike, and y rounds once, so one
+   bfloat16 step (rtol 1e-2, relative L2 6e-5).  Each case holds planted
+   faults on the kernel's seams to the same limits and fails unless every
+   one is rejected (the plain version computing what a kernel with that
+   fault would; each planted only where it changes the result): the state
+   zeroed before a step in mid-sequence (a chunk boundary: a carry lost
+   between chunks); one lane's segment started from zero at a segment
+   boundary inside a chunk (a lost scan prefix); every chunk's lanes past
+   the first started from their prefix alone, without the carry's decayed
+   term; and one channel's step skipped.  Per case: errors, the wrapper's
+   time (CUDA events), the kernel's device time (torch.profiler) and the
+   bound (bytes, or the exp2 calls over the special-function units); at
+   the main shape the plain version's time; no PyTorch call computes a
+   selective scan, so there is no library time.
 13. Falcon Mamba 7B at full width (``configs.get("falcon-mamba-7b")``: 64
    Mamba-1 layers, d_model 4096, d_inner 8192, N = 16, 7,273,709,568
    parameters in bfloat16, random weights from the seed) after Gemma's
@@ -1175,6 +1187,39 @@ def wgmma_build_report(torch, build, fa) -> None:
           flush=True)
 
 
+def scan_build_report(torch, build, sc) -> None:
+    """Phase 1: ptxas's registers and spill bytes for every scan_fwd
+    instantiation (float32 and bfloat16, cp.async pieces and plain loads),
+    the chunk geometry the library reports and the blocks an SM takes; a
+    spill, or fewer than two blocks an SM, fails the run."""
+    found = {}
+    for fn, usage in build.ptxas_usage(build.build_log("mamba_scan")).items():
+        inst = re.search(r"scan_fwdI(f|13__nv_bfloat16)Lb([01])E", fn)
+        if inst:
+            found[("float32" if inst.group(1) == "f" else "bfloat16",
+                   "cp.async" if inst.group(2) == "1" else "plain loads")] = \
+                usage
+    if len(found) != 4:
+        raise AssertionError(f"ptxas reported scan_fwd instantiations "
+                             f"{sorted(found)}, want 4")
+    channels, items, chunk = sc.scan_tile()
+    for (dtype, path), usage in sorted(found.items()):
+        print(f"ptxas: scan_fwd<{dtype}, {path}> ({channels} channels a "
+              f"block, {items} steps a lane, {chunk}-step chunks) "
+              f"{usage.get('registers')} registers, "
+              f"{usage.get('spill_stores')} bytes spill stores, "
+              f"{usage.get('spill_loads')} bytes spill loads", flush=True)
+        if usage.get("spill_stores") != 0 or usage.get("spill_loads") != 0:
+            raise AssertionError(f"scan_fwd<{dtype}, {path}> spills: {usage}")
+    for dtype in (torch.float32, torch.bfloat16):
+        blocks = sc.blocks_per_sm(dtype)
+        print(f"scan_fwd at {str(dtype).split('.')[-1]}: {blocks} blocks an "
+              f"SM", flush=True)
+        if blocks < 2:
+            raise AssertionError(f"scan_fwd fits {blocks} block(s) an SM at "
+                                 f"{dtype}, want 2")
+
+
 def phase_flash_forward(torch, fa, fa_ref, device) -> float:
     """Phase 8: the forward kernel vs its plain version over the sweep.
     Returns the largest absolute error."""
@@ -1558,27 +1603,71 @@ def _scan_inputs(torch, gen, b, length, d, n, dtype, strided, device, *,
     return u.to(cast), delta.to(cast), a, bm, cm, torch.randn(d, **f)
 
 
-def _scan_faults(torch, ref, x):
-    """The plain version with a planted fault: the state zeroed before a
-    step in mid-sequence (a carry lost across a 64-step chunk; none at L =
-    1, where it changes nothing), and one channel's step skipped (Δ = 0
-    there: the state passes through unchanged)."""
+def _scan_faults(torch, ref, x, want, tile):
+    """The plain version with a planted fault each, as a kernel with that
+    fault would compute, placed on the kernel's seams as its library reports
+    them (``tile`` = channels, steps a lane owns, steps a chunk).  Each is
+    planted only where it changes the result:
+
+    * the state zeroed before a step in mid-sequence: a chunk boundary (a
+      carry lost between chunks), or L / 2 where L < two chunks;
+    * one lane's segment started from zero at a segment boundary inside a
+      chunk (a lost warp-scan prefix; the lanes after it are right);
+    * every chunk's lanes past the first started from their prefix alone,
+      without the carry's decayed term (h_start = h_excl, not P_excl ·
+      h_carry + h_excl), so only the first lane of a chunk sees the carry;
+    * one channel's step skipped (Δ = 0 there: the state passes through
+      unchanged).
+
+    ``want`` is the plain version's (y, h_final) on ``x``.  Returns (what,
+    y, h_final) triples."""
+    _, items, chunk = tile
     u, delta, a, bm, cm, dv = x
     length, d = u.shape[1], u.shape[2]
+
+    def part(s, e, h0=None):
+        return ref(u[:, s:e], delta[:, s:e], a, bm[:, s:e], cm[:, s:e], dv,
+                   h0=h0)
+
     faults = []
     if length > 1:
-        t0 = max(1, (length // 2) // 64 * 64 if length >= 128
-                 else length // 2)
-        y1, _ = ref(u[:, :t0], delta[:, :t0], a, bm[:, :t0], cm[:, :t0], dv)
-        y2, h2 = ref(u[:, t0:], delta[:, t0:], a, bm[:, t0:], cm[:, t0:],
-                     dv)
-        faults.append((f"state zeroed before step {t0}",
+        t0 = (length // 2) // chunk * chunk if length >= 2 * chunk \
+            else length // 2
+        y1, _ = part(0, t0)
+        y2, h2 = part(t0, length)
+        faults.append((f"state zeroed before step {t0}"
+                       f"{' (a chunk boundary)' if t0 % chunk == 0 else ''}",
                        torch.cat([y1, y2], dim=1), h2))
-    t1, c1 = length // 2, d // 2
+    if length > items:
+        c = (length // 2) // chunk * chunk
+        span = min(length, c + chunk) - c
+        t1 = c + items * max(1, (span // items) // 2)
+        y_ok, h_ok = want
+        e1 = min(length, t1 + items)
+        y_seg, h_seg = part(t1, e1)
+        faults.append((f"lane segment at steps {t1}-{e1 - 1} started from "
+                       f"zero (a lost warp-scan prefix)",
+                       torch.cat([y_ok[:, :t1], y_seg, y_ok[:, e1:]], dim=1),
+                       h_seg if e1 == length else h_ok))
+    if length > chunk + items:
+        ys, carry = [], None
+        for c in range(0, length, chunk):
+            e, s1 = min(length, c + chunk), min(length, c + items)
+            y0, h0 = part(c, s1, carry)
+            ys.append(y0)
+            carry = h0
+            if s1 < e:
+                _, excl = part(c, s1)
+                y1, carry = part(s1, e, excl)
+                ys.append(y1)
+        faults.append(("every chunk's lanes past the first started from "
+                       "h_excl alone (the carry's decayed term dropped)",
+                       torch.cat(ys, dim=1), carry))
+    t2, c2 = length // 2, d // 2
     skipped = delta.clone()
-    skipped[:, t1, c1] = 0
+    skipped[:, t2, c2] = 0
     yf, hf = ref(u, skipped, a, bm, cm, dv)
-    faults.append((f"channel {c1}'s step {t1} skipped", yf, hf))
+    faults.append((f"channel {c2}'s step {t2} skipped", yf, hf))
     return faults
 
 
@@ -1603,10 +1692,11 @@ def _scan_bound_ms(x) -> tuple[float, str]:
 
 def _scan_case(torch, sc, ref, x, label, *, timed, must_reject=True) -> dict:
     """Scan kernel vs plain on ``x`` = (u, delta, A, B, C, D): y and
-    h_final within ``SCAN_TOL``, and each planted fault held to the same
-    limits (rejected where ``must_reject``); the times.  The plain
-    version's time only where ``timed``: no single PyTorch call computes a
-    selective scan, so there is no library time."""
+    h_final within ``SCAN_TOL``, and each planted fault (``_scan_faults``,
+    on the seams of the library's ``scan_tile()``) held to the same limits
+    (rejected where ``must_reject``); the times.  The plain version's time
+    only where ``timed``: no single PyTorch call computes a selective scan,
+    so there is no library time."""
     tol = SCAN_TOL[str(x[0].dtype).split(".")[-1]]
     y, h = sc.scan(*x)
     y_r, h_r = ref(*x)
@@ -1617,7 +1707,8 @@ def _scan_case(torch, sc, ref, x, label, *, timed, must_reject=True) -> dict:
             f"{ey['max']:.3g} relative L2 {ey['rel_l2']:.3g}, h max |err| "
             f"{eh['max']:.3g} relative L2 {eh['rel_l2']:.3g} (limits {tol})")
     faults = []
-    for what, yf, hf in _scan_faults(torch, ref, x):
+    for what, yf, hf in _scan_faults(torch, ref, x, (y_r, h_r),
+                                     sc.scan_tile()):
         fy, fh = _errors(torch, yf, y_r, tol["y"]), _errors(torch, hf, h_r,
                                                             tol["h"])
         rejected = not (fy["ok"] and fh["ok"])
@@ -1658,12 +1749,32 @@ def _scan_label(x, strided) -> str:
             f"{' strided B/C (row stride %d)' % x[3].stride(1) if strided else ''}")
 
 
+def _seam_cases(tile) -> list:
+    """Sweep cases on the kernel's seams, from its library's geometry: L
+    inside one lane segment, a chunk less one, a chunk and one, two chunks
+    and a segment and one; D past a whole number of blocks, with u's rows
+    16-byte aligned (cp.async pieces, a partial last piece) or not (plain
+    loads)."""
+    channels, items, chunk = tile
+    aligned_d = 1000 // channels * channels + 4
+    plain_d = aligned_d + 1
+    if aligned_d % channels == 0 or plain_d % channels == 0:
+        raise AssertionError(f"seam cases want D off the {channels}-channel "
+                             f"blocks, got {aligned_d} and {plain_d}")
+    return [(2, max(1, items // 2), plain_d, 16, "float32", True),
+            (1, chunk - 1, 1000, 16, "bfloat16", True),
+            (3, chunk + 1, aligned_d, 16, "float32", False),
+            (2, chunk + 1, plain_d, 4, "bfloat16", False),
+            (2, 2 * chunk + items + 1, aligned_d, 8, "float32", True)]
+
+
 def phase_scan(torch, sc, ref, device) -> float:
-    """Phase 12: the scan kernel vs its plain version over the sweep and at
-    the main shape.  Returns the largest absolute error."""
+    """Phase 12: the scan kernel vs its plain version over the sweep, its
+    seams and the main shape.  Returns the largest absolute error."""
     gen = torch.Generator(device=device).manual_seed(SEED + 12)
     worst = 0.0
-    for b, length, d, n, dtype, strided in SCAN_CASES + [SCAN_MAIN]:
+    for b, length, d, n, dtype, strided in (
+            SCAN_CASES + _seam_cases(sc.scan_tile()) + [SCAN_MAIN]):
         main = (b, length, d, n, dtype, strided) == SCAN_MAIN
         x = _scan_inputs(torch, gen, b, length, d, n, dtype, strided, device,
                          model_delta=main)
@@ -1919,6 +2030,7 @@ def main(argv=None) -> int:
     hc.library()
     fa.library()
     sc.library()
+    scan_build_report(torch, _build, sc)
 
     worst = phase_kernel(torch, ops, fused_streaming_fold_ref, device)
     main_shape = phase_kernel_main_shape(torch, ops, fused_streaming_fold_ref,

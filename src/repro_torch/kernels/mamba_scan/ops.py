@@ -7,8 +7,9 @@ and ``delta`` are (batch, L, D), ``A`` is (D, N), ``B`` and ``C`` are
 D) in u's dtype and the final state (batch, D, N) in float32.  Where it
 runs follows the tensors the caller gives it:
 
-* CUDA tensors launch the hand-written kernel (``csrc/mamba_scan.cu``,
-  built with ``nvcc`` at first use) on the current stream, or raise — a
+* CUDA tensors launch the hand-written kernel (``csrc/mamba_scan.cu``, a
+  scan parallel over time in chunks of ``scan_tile()`` steps, built with
+  ``nvcc`` at first use) on the current stream, or raise — a
   failed build, a refused launch or an unsupported dtype or shape is an
   error, never a reason to scan some other way;
 * CPU tensors run the plain PyTorch version (``ref.py``).
@@ -37,14 +38,42 @@ MAX_STATE = 16
 
 
 def library() -> ctypes.CDLL:
-    """The built kernel with its C signature declared."""
+    """The built kernel with its C signatures declared."""
     lib = load_library("mamba_scan")
-    fn = lib.mamba_scan_launch
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    fn, tile = lib.mamba_scan_launch, lib.mamba_scan_tile
+    occupancy = lib.mamba_scan_blocks_per_sm
     if fn.argtypes is None:
-        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         fn.argtypes = [p] * 8 + [i] * 4 + [ll] * 4 + [i, p]
         fn.restype = ctypes.c_int
+    if tile.argtypes is None:
+        tile.argtypes = [ctypes.POINTER(i)] * 3
+        tile.restype = None
+    if occupancy.argtypes is None:
+        occupancy.argtypes = [i]
+        occupancy.restype = ctypes.c_int
     return lib
+
+
+def scan_tile() -> tuple[int, int, int]:
+    """The kernel's chunk geometry, as the built library reports it:
+    (channels a block owns; consecutive steps a lane owns in a chunk; steps
+    of a chunk, shared by chunk / items lanes of one channel)."""
+    channels, items, chunk = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    library().mamba_scan_tile(ctypes.pointer(channels), ctypes.pointer(items),
+                              ctypes.pointer(chunk))
+    return channels.value, items.value, chunk.value
+
+
+def blocks_per_sm(dtype: torch.dtype) -> int:
+    """Blocks of the kernel that fit one SM of the current card at this
+    input dtype (the CUDA occupancy calculator, with the launch's shared
+    memory); raises on a CUDA error."""
+    n = library().mamba_scan_blocks_per_sm(_DTYPE_CODE[dtype])
+    if n < 0:
+        raise RuntimeError(f"mamba scan occupancy query failed: CUDA error "
+                           f"{-n}")
+    return n
 
 
 def _check(u, delta, A, B, C, D) -> None:
@@ -142,5 +171,5 @@ def decode_step(h: torch.Tensor, u_t: torch.Tensor, delta_t: torch.Tensor,
     return y.to(u_t.dtype), h_new
 
 
-__all__ = ["MAX_STATE", "decode_step", "library", "scan",
-           "selective_scan_ref"]
+__all__ = ["MAX_STATE", "blocks_per_sm", "decode_step", "library", "scan",
+           "scan_tile", "selective_scan_ref"]

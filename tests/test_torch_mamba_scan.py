@@ -8,9 +8,13 @@ and without an initial state, and against its Pallas kernel
 runs it) on the shapes that kernel accepts; ``decode_step`` against the
 reference's and a decode loop against the full scan; then the wrapper's
 routing (CPU tensors count no launch; any other tensor goes to the kernel
-or raises), its argument checks and strided B/C views.  The CUDA kernel
-itself runs only on the card: its tests carry the ``cuda`` marker and skip
-here.
+or raises), its argument checks and strided B/C views, and its reading of
+the library's chunk geometry.  A numpy emulation of the kernel's
+time-parallel decomposition (lane segments, the scan of (P, h) over a
+channel's lanes, the chunk carry, the re-walk) is held against the plain
+version and the reference's oracle at lengths on its seams.  The CUDA
+kernel itself runs only on the card: its tests carry the ``cuda`` marker
+and skip here.
 
 Inputs follow ``tests/test_kernels.py``: Δ = |N(0, 1)|·0.1 + 0.01 and a
 random negative A = -(|N(0, 1)| + 0.5), never the model's A = -(1..N).
@@ -254,19 +258,152 @@ def test_non_cpu_tensors_never_reach_the_plain_version(monkeypatch):
 
 def test_library_signature_passes_pointers_and_strides_whole(monkeypatch):
     """ctypes must pass pointers and the stream as 64-bit values, and the
-    strides of B and C as 64-bit integers."""
+    strides of B and C as 64-bit integers; the geometry and occupancy
+    queries take three int pointers and a dtype code."""
     class Fn:
         argtypes = None
         restype = None
 
     class Lib:
         mamba_scan_launch = Fn()
+        mamba_scan_tile = Fn()
+        mamba_scan_blocks_per_sm = Fn()
 
     monkeypatch.setattr(ops, "load_library", lambda name: Lib())
-    fn = ops.library().mamba_scan_launch
+    lib = ops.library()
+    fn = lib.mamba_scan_launch
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     assert fn.argtypes == [p] * 8 + [i] * 4 + [ll] * 4 + [i, p]
     assert fn.restype is ctypes.c_int
+    assert lib.mamba_scan_tile.argtypes == [ctypes.POINTER(i)] * 3
+    assert lib.mamba_scan_blocks_per_sm.argtypes == [i]
+    assert lib.mamba_scan_blocks_per_sm.restype is ctypes.c_int
+
+
+def test_scan_tile_and_occupancy_are_read_from_the_library(monkeypatch):
+    """``scan_tile`` returns what the library writes through its three
+    pointers, and ``blocks_per_sm`` passes the dtype code and raises on a
+    negative answer (a CUDA error); a stand-in library here."""
+    asked = []
+
+    class Lib:
+        @staticmethod
+        def mamba_scan_tile(channels, items, chunk):
+            channels[0], items[0], chunk[0] = 8, 4, 128
+
+        @staticmethod
+        def mamba_scan_blocks_per_sm(code):
+            asked.append(code)
+            return -2 if code == 1 else 3
+
+    monkeypatch.setattr(ops, "library", lambda: Lib())
+    assert ops.scan_tile() == (8, 4, 128)
+    assert ops.blocks_per_sm(torch.float32) == 3
+    with pytest.raises(RuntimeError, match="CUDA error 2"):
+        ops.blocks_per_sm(torch.bfloat16)
+    assert asked == [0, 1]
+
+
+# ---------------------------------------------------------------------------
+# The kernel's decomposition, emulated in numpy float32
+# ---------------------------------------------------------------------------
+
+def _emulate_kernel(u, delta, a, bm, cm, dv, *, items, lanes=8):
+    """What ``csrc/mamba_scan.cu`` computes for each channel, step by step
+    in float32: time in chunks of ``lanes * items`` steps; lane l of the
+    channel's ``lanes`` owns ``items`` consecutive steps of a chunk and
+    folds its factors into (P, h), lane 0 from the chunk's carry; an
+    inclusive Hillis-Steele scan of (P, h) over the lanes (``lanes`` a power
+    of two) and a shift give each lane its start state; the lanes walk
+    their steps again from it, adding h·C to y; the last lane's last state
+    is the next chunk's carry.  Steps past L enter as the identity.
+    Returns (y (b, L, d), h_final (b, d, n))."""
+    f = np.float32
+    b, length, d = u.shape
+    n = a.shape[1]
+    chunk = lanes * items
+    a2 = a * f(np.log2(np.e))
+    carry = np.zeros((b, d, n), f)
+    y = np.empty((b, length, d), f)
+    for t0 in range(0, length, chunk):
+        m = min(chunk, length - t0)
+
+        def tile(x):       # (b, lanes, items, ...), zero past L
+            out = np.zeros((b, chunk) + x.shape[2:], f)
+            out[:, :m] = x[:, t0:t0 + m]
+            return out.reshape((b, lanes, items) + x.shape[2:])
+
+        dt, du = tile(delta), tile(delta * u)
+        b_t, c_t = tile(bm), tile(cm)
+        d_a = np.exp2(dt[..., None] * a2)                # (b, l, i, d, n)
+        d_bu = du[..., None] * b_t[:, :, :, None, :]
+        p_seg = np.ones((b, lanes, d, n), f)
+        h = np.zeros((b, lanes, d, n), f)
+        h[:, 0] = carry
+        for i in range(items):
+            h = d_a[:, :, i] * h + d_bu[:, :, i]
+            p_seg = p_seg * d_a[:, :, i]
+        off = 1
+        while off < lanes:
+            h_new, p_new = h.copy(), p_seg.copy()
+            h_new[:, off:] = p_seg[:, off:] * h[:, :-off] + h[:, off:]
+            p_new[:, off:] = p_seg[:, off:] * p_seg[:, :-off]
+            h, p_seg, off = h_new, p_new, 2 * off
+        hs = np.concatenate([carry[:, None], h[:, :-1]], axis=1)
+        y_t = np.zeros((b, lanes, items, d), f)
+        for i in range(items):
+            hs = d_a[:, :, i] * hs + d_bu[:, :, i]
+            y_t[:, :, i] = np.einsum("bldn,bln->bld", hs, c_t[:, :, i])
+        carry = hs[:, -1]
+        y[:, t0:t0 + m] = (y_t.reshape(b, chunk, d)[:, :m]
+                           + dv * u[:, t0:t0 + m])
+    return y, carry
+
+
+def _seam_length(seam: str, items: int, chunk: int) -> int:
+    """A sequence length that puts L at one of the kernel's seams."""
+    return {"one step": 1,
+            "inside the first segment": max(1, items - 1),
+            "a chunk less one": chunk - 1,
+            "a chunk and one": chunk + 1,
+            "two chunks and a segment and one": 2 * chunk + items + 1}[seam]
+
+
+SEAMS = ["one step", "inside the first segment", "a chunk less one",
+         "a chunk and one", "two chunks and a segment and one"]
+
+
+@pytest.mark.parametrize("items", [1, 3, 8, 16])
+@pytest.mark.parametrize("seam", SEAMS)
+def test_time_parallel_decomposition_matches_plain_and_oracle(items, seam):
+    """The kernel's decomposition (lane segments, the scan of (P, h) over
+    a channel's 8 lanes, the chunk carry and the re-walk) in float32 equals
+    the sequential scan: the plain version and the reference's oracle, at
+    lengths on each seam and over segment sizes; 6 channels."""
+    lanes = 8
+    length = _seam_length(seam, items, lanes * items)
+    arrays = _inputs(items * 1000 + length, 2, length, 6, 5)
+    y, h = _emulate_kernel(*arrays, items=items, lanes=lanes)
+    js, ts = _both(arrays, "float32")
+    y_p, h_p = selective_scan_ref(*ts)
+    y_r, h_r = jax_ref(*js)
+    assert y.shape == (2, length, 6) and h.shape == (2, 6, 5)
+    for want_y, want_h in ((y_p, h_p), (y_r, h_r)):
+        np.testing.assert_allclose(y, _np(want_y), **F32)
+        np.testing.assert_allclose(h, _np(want_h), **F32)
+
+
+@pytest.mark.parametrize("lanes,items", [(2, 1), (4, 2), (8, 5), (32, 2)])
+def test_decomposition_with_other_lane_counts_over_many_chunks(lanes,
+                                                               items):
+    """Other lane counts, up to a whole warp: many chunks, so the carry
+    crosses 30 seams."""
+    length = 31 * lanes * items + 3
+    arrays = _inputs(lanes + items, 1, length, 3, 16)
+    y, h = _emulate_kernel(*arrays, items=items, lanes=lanes)
+    y_p, h_p = selective_scan_ref(*map(torch.from_numpy, arrays))
+    np.testing.assert_allclose(y, _np(y_p), **F32)
+    np.testing.assert_allclose(h, _np(h_p), **F32)
 
 
 # ---------------------------------------------------------------------------
@@ -296,3 +433,38 @@ def test_cuda_scan_matches_plain_version(cuda_device, b, length, d, n,
     torch.testing.assert_close(y.float(), y_r.float(),
                                **(F32 if dtype == "float32" else BF16))
     torch.testing.assert_close(h, h_r, **F32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seam,dtype", [
+    ("inside the first segment", "float32"),
+    ("a chunk less one", "bfloat16"), ("a chunk and one", "float32"),
+    ("two chunks and a segment and one", "bfloat16")])
+def test_cuda_scan_at_the_kernel_seams(cuda_device, seam, dtype):
+    """Lengths on the kernel's own seams (from the library's geometry),
+    with D one channel past a whole number of blocks, so the last block
+    has a single live warp and u's rows are not 16-byte aligned."""
+    channels, items, chunk = ops.scan_tile()
+    length = _seam_length(seam, items, chunk)
+    d = 3 * channels + 1
+    cast = getattr(torch, dtype)
+    u, delta, a, bm, cm, dv = (torch.from_numpy(x).to(cuda_device)
+                               for x in _inputs(length, 2, length, d, 16))
+    u, delta, bm, cm = (t.to(cast) for t in (u, delta, bm, cm))
+    y, h = ops.scan(u, delta, a, bm, cm, dv)
+    y_r, h_r = selective_scan_ref(u, delta, a, bm, cm, dv)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y.float(), y_r.float(),
+                               **(F32 if dtype == "float32" else BF16))
+    torch.testing.assert_close(h, h_r, **F32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_two_blocks_fit_an_sm(cuda_device, dtype):
+    """The chunk geometry leaves room for two blocks an SM (shared memory
+    and registers); a channel's lanes, chunk / items, divide a warp."""
+    channels, items, chunk = ops.scan_tile()
+    lanes = chunk // items
+    assert lanes * items == chunk and 32 % lanes == 0
+    assert ops.blocks_per_sm(dtype) >= 2
