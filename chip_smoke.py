@@ -3,6 +3,10 @@
     python3 chip_smoke.py            # from the repository root, one CUDA card
     python3 chip_smoke.py --seed 1   # the same with other random weights,
                                      # prompts and data
+    python3 chip_smoke.py --logit-floor 0 1 2 3 4
+                                     # only phase 10's plain witness (the
+                                     # model's own prefill-vs-decode logit
+                                     # gap) at these seeds; no kernels
 
 Drives ``repro_torch`` (never JAX, never the ``repro`` package) on the
 card, phase by phase; any mismatch raises and the script exits non-zero:
@@ -12,7 +16,8 @@ card, phase by phase; any mismatch raises and the script exits non-zero:
    with ``nvcc`` for ``sm_90a``, all builds started together; from
    ``ptxas -v``'s report, fwd_wgmma's registers and spill bytes at each
    head dim (a spill fails the run) and ptxas's lines on serialised wgmma;
-   then scan_fwd's registers and spill bytes for each of its four
+   decode_cluster's registers and spill bytes for each of its 32
+   instantiations (a spill fails the run); then scan_fwd's registers and spill bytes for each of its four
    instantiations (float32 and bfloat16, cp.async pieces or plain loads),
    the chunk geometry its library reports (``ops.scan_tile()``) and the
    blocks an SM takes (a spill, or fewer than two blocks, fails the run).
@@ -99,16 +104,31 @@ card, phase by phase; any mismatch raises and the script exits non-zero:
    version's time and ``scaled_dot_product_attention``'s (GQA via
    ``enable_gqa``, the window as a boolean mask; it has no softcap, so
    the yardstick omits it).
-9. Split-K decode vs plain: ``decode_attention`` against ``decode_ref``
-   over B 1-8, GQA groups 1-8, per-row lengths from 1 to S_max
-   (including S_max), windows none, 16 and 4096, softcap none and 50,
-   S_max up to 8320.  Tolerance (``FD_TOL``): the kernel sums in float32
+9. Split-K decode vs plain: ``decode_attention`` (``decode_cluster``: one
+   launch of thread-block clusters whose blocks split each row's live
+   range and merge through distributed shared memory) against
+   ``decode_ref`` over B 1-8, GQA groups 1-8 (8 at head dim 128 as
+   qwen3-32b, 160 as stablelm-12b), per-row lengths from 1 to S_max
+   (including S_max), windows none, 16, 1000 and 4096, softcap none and
+   50, S_max up to 8320, caches at byte 0, 2 (bfloat16) and 4 (float32,
+   head dim 33) of 16.  Tolerance (``FD_TOL``): the kernel sums in float32
    like its plain version and rounds once, so bfloat16 within atol 1e-4 +
-   rtol 1e-2 and relative L2 5e-3, float32 as in phase 8.  The planted
-   fault: row 0's first split of live V positions zeroed, as a kernel
-   that dropped that split would compute.  The same numbers.  Last, a
-   row of length 0 (outside the wrapper's contract, lengths >= 1): the
-   kernel must answer 0, as the reference's ``flash_decode`` does.
+   rtol 1e-2 and relative L2 5e-3, float32 as in phase 8.  From the
+   geometry the library reports (``decode_geometry``: cluster size, keys
+   a tile, ring slots), up to three planted faults in row 0, each where it
+   changes the output and each required to fail the tolerance: a rank's
+   partial dropped from the merge, a stale ring slot (rank 0's tile
+   ``slots`` read as tile 0), every rank's ragged last tile dropped.
+   Three calls must be equal bit for bit, the last two after a call at
+   another cluster size (held to the same tolerance).  Per case the
+   wrapper's time (CUDA events) and its host time per call, the kernel's
+   device time (torch.profiler) and the byte bound; at the main path's
+   shape the plain version's and SDPA's time (a length mask, no softcap),
+   the device time at cluster sizes 8 and 16, and one allocation a call
+   (the output).  A case with caches off a 16-byte boundary must take at
+   most 3x the device time of aligned copies of them.  Last, a row of
+   length 0 (outside the wrapper's contract, lengths >= 1): the kernel
+   must answer 0, as the reference's ``flash_decode`` does.
 10. Gemma 2 9B at full width (``configs.get("gemma2-9b")``: 42 layers,
    d_model 3584, 9,241,401,344 parameters in bfloat16, random weights
    from the seed — no checkpoint is in the repository): one 8,192-token
@@ -117,16 +137,18 @@ card, phase by phase; any mismatch raises and the script exits non-zero:
    decode launches.  One windowed and one global layer's real q, k, v
    (prefill) and q, caches, lengths (first decode step) are captured and
    each kernel is held against its plain version on them (the planted
-   faults are reported there, not required to fail).  Logits, each pair
-   within ``LOGIT_TOL`` (atol 0.1 + rtol 0.05 element by element, max
-   |diff| 0.25, relative L2 0.04; the float32 logits lie under 30, the
-   final softcap): the last prefill logits against those of decoding the
-   last token from a prefill one token shorter, with the kernels and
-   again with the plain versions in their places (the model's own
-   bfloat16 path rounds at other places in prefill and decode); and
-   kernel against plain on each path — the 8,192-token prefill, and the
-   decode step on one cache; all four are printed before any failure is
-   raised.
+   faults are reported there, not required to fail); a profile of one
+   decode step must hold exactly one ``decode_cluster`` launch a layer and
+   no other decode kernel.  Logits, each pair within ``LOGIT_TOL`` (atol
+   0.2022 + rtol 0.05 element by element, max |diff| 0.25, relative L2
+   0.04; atol from the plain path's own gap over seeds 0-4, read with
+   ``--logit-floor``; the float32 logits lie under 30, the final softcap):
+   the last prefill logits against those of decoding the last token from
+   a prefill one token shorter, with the kernels and again with the plain
+   versions in their places (the model's own bfloat16 path rounds at other
+   places in prefill and decode); and kernel against plain on each path —
+   the 8,192-token prefill, and the decode step on one cache; all four are
+   printed before any failure is raised.
    Prefill tokens/s, decode ms per step and peak device memory.
 11. Batched serving at full width: ``BatchedServer`` with 4 slots and
    ``max_len`` 128 on 8 requests of 32-token prompts and 32 new tokens;
@@ -232,7 +254,7 @@ HC_DS = (1, 4, 16)
 HC_KERNELS = ("combine_shared", "combine_global", "round_to_bf16")
 HASHED = {"n_tokens": 1 << 20, "vocab": 1 << 16, "buckets": 1024}
 BF16_OPS_PER_S = 989e12         # H100 SXM bf16 tensor cores, dense
-FD_KERNELS = ("decode_split", "decode_combine")
+FD_KERNELS = ("decode_cluster",)
 # atol, rtol, relative L2 (||got - want|| / ||want||) of kernel vs plain
 FA_TOL = {"bfloat16": (5e-3, 2e-2, 5e-3), "float32": (1e-4, 1e-4, 1e-3)}
 FD_TOL = {"bfloat16": (1e-4, 1e-2, 5e-3), "float32": (1e-4, 1e-4, 1e-3)}
@@ -255,25 +277,34 @@ FA_CASES = [  # b, hq, hkv, sq, skv, d, causal, window, softcap, dtype
     (1, 16, 8, 8192, 8192, 256, True, 4096, 50.0, "bfloat16"),
     (1, 16, 8, 8192, 8192, 256, True, None, 50.0, "bfloat16"),
 ]
-FD_CASES = [  # b, hq, hkv, s_max, d, window, softcap, dtype
-    (1, 16, 8, 8320, 256, None, 50.0, "bfloat16"),
-    (4, 16, 8, 8320, 256, 4096, 50.0, "bfloat16"),
-    (8, 16, 8, 8320, 256, 16, None, "bfloat16"),
-    (2, 8, 8, 1000, 64, None, None, "float32"),
-    (3, 16, 2, 4096, 128, 4096, 50.0, "float32"),
-    (5, 32, 8, 2048, 128, 16, 50.0, "bfloat16"),
-    (6, 56, 8, 1024, 128, None, None, "bfloat16"),
-    (1, 4, 4, 1, 64, None, None, "bfloat16"),
+FD_CASES = [  # b, hq, hkv, s_max, d, window, softcap, dtype, cache shift
+    (1, 16, 8, 8320, 256, None, 50.0, "bfloat16", 0),
+    (4, 16, 8, 8320, 256, 4096, 50.0, "bfloat16", 0),
+    (8, 16, 8, 8320, 256, 16, None, "bfloat16", 0),
+    (2, 8, 8, 1000, 64, None, None, "float32", 0),
+    (3, 16, 2, 4096, 128, 4096, 50.0, "float32", 0),
+    (5, 32, 8, 2048, 128, 16, 50.0, "bfloat16", 0),
+    (6, 56, 8, 1024, 128, None, None, "bfloat16", 0),
+    (1, 4, 4, 1, 64, None, None, "bfloat16", 0),
+    (4, 64, 8, 4096, 128, None, None, "bfloat16", 0),    # qwen3-32b, group 8
+    (2, 32, 8, 4096, 160, 1000, None, "bfloat16", 0),    # stablelm-12b
+    (8, 16, 8, 4096, 256, None, 50.0, "bfloat16", 2),    # caches at byte 2
+    (3, 21, 3, 500, 33, 100, 30.0, "float32", 4),        # rows off 16 bytes
 ]
 GEMMA = {"arch": "gemma2-9b", "prompt": 8192, "decode_steps": 16}
 SERVE = {"slots": 4, "max_len": 128, "requests": 8, "prompt": 32,
          "max_new": 32}
 # two logit vectors at full width: atol + rtol element by element, and a
-# max |diff| and relative L2 of twice the largest gap read on the card,
-# where the plain path's own prefill vs decode gap (no kernels) was 0.1032
-# / 0.0188 and kernel vs plain 0.1173 / 0.0208 (the floor of bfloat16
-# rounding carried through 42 layers)
-LOGIT_TOL = {"atol": 0.1, "rtol": 0.05, "max_abs": 0.25, "rel_l2": 0.04}
+# max |diff| and relative L2 of about twice the largest gap read on the
+# card.  atol is twice the largest element excess max(|diff| - rtol |want|)
+# of the plain path's own prefill vs decode gap (no kernels; the floor of
+# bfloat16 rounding carried through 42 layers) over seeds 0-4
+# (``--logit-floor 0 1 2 3 4``, on an H100 80GB HBM3 at 700 W): excess
+# 0.09301 / 0.09236 / 0.1011 / 0.09171 / 0.09966, max |diff| 0.1032 /
+# 0.1063 / 0.1106 / 0.1039 / 0.107, relative L2 0.0188 / 0.01872 /
+# 0.02022 / 0.01935 / 0.02011 (kernel vs plain was 0.1173 / 0.0208 at seed
+# 0), so max_abs and rel_l2 stay
+LOGIT_TOL = {"atol": 0.2022, "rtol": 0.05, "max_abs": 0.25, "rel_l2": 0.04}
 # exp2 results per second on the special-function units: H100 SXM, 16 a
 # clock per SM (NVIDIA's CUDA documentation, arithmetic instruction
 # throughput), 132 SMs at the 1.98 GHz boost clock
@@ -885,12 +916,13 @@ def phase_hashed(torch, hc, wc) -> None:
           "device='cuda' and device='cpu'")
 
 
-def _device_us_per_call(torch, fn, names, reps=FA_REPS) -> str:
+def _kernel_us(torch, fn, names, reps=FA_REPS) -> tuple:
     """Device time per ``fn()`` call of the named kernels, each launched
     once a call, from torch.profiler's CPU and CUDA trace: the mean
-    duration of each kernel's records, summed over the kernels.  The
-    trace may miss a launch's record at the edge of the window, so the
-    mean is taken over the records it holds (their count is printed)."""
+    duration of each kernel's records, summed over the kernels, and the
+    records it holds (the trace may miss a launch's record at the edge of
+    the window); (None, 0) when the trace holds no device time for one of
+    them."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -907,9 +939,17 @@ def _device_us_per_call(torch, fn, names, reps=FA_REPS) -> str:
                 per_name[n] = (count + ev.count, total + _device_us(ev))
     if set(per_name) != set(names) or \
             any(t <= 0 for _, t in per_name.values()):
+        return None, 0
+    return (sum(t / c for c, t in per_name.values()),
+            sum(c for c, _ in per_name.values()))
+
+
+def _device_us_per_call(torch, fn, names, reps=FA_REPS) -> str:
+    """``_kernel_us`` as text: the time and the records it rests on, or
+    "not measured"."""
+    us, records = _kernel_us(torch, fn, names, reps)
+    if us is None:
         return "not measured"
-    us = sum(t / c for c, t in per_name.values())
-    records = sum(c for c, _ in per_name.values())
     return f"{us:.2f} us ({records} of {reps * len(names)} records)"
 
 
@@ -936,6 +976,7 @@ def _profile_step(torch, fn, label) -> None:
     for ev in sorted(events, key=_device_us, reverse=True)[:6]:
         print(f"  device {_device_us(ev) / 1e3:9.3f} ms  x{ev.count:<5d} "
               f"{ev.key[:80]}")
+    return events
 
 
 def _fa_tensors(torch, rng, shapes, dtype, device):
@@ -1220,6 +1261,34 @@ def scan_build_report(torch, build, sc) -> None:
                                  f"{dtype}, want 2")
 
 
+def decode_build_report(build) -> None:
+    """Phase 1: ptxas's registers, stack frame and spill bytes for every
+    decode_cluster instantiation (float32 and bfloat16, 1, 2, 4 or 8
+    dimensions a lane, GQA groups up to 1, 2, 4 or 8); a spill or a stack
+    frame (an array in local memory on the hot path) fails the run."""
+    found = {}
+    for fn, usage in build.ptxas_usage(
+            build.build_log("flash_attention")).items():
+        inst = re.search(r"decode_clusterI(f|13__nv_bfloat16)Li(\d)ELi(\d)E",
+                         fn)
+        if inst:
+            found[("float32" if inst.group(1) == "f" else "bfloat16",
+                   int(inst.group(2)), int(inst.group(3)))] = usage
+    if len(found) != 32:
+        raise AssertionError(f"ptxas reported decode_cluster instantiations "
+                             f"{sorted(found)}, want 32")
+    for (dtype, epl, group), usage in sorted(found.items()):
+        print(f"ptxas: decode_cluster<{dtype}, {epl} dims a lane, group <= "
+              f"{group}> {usage.get('registers')} registers, "
+              f"{usage.get('stack_frame')} bytes stack frame, "
+              f"{usage.get('spill_stores')} bytes spill stores, "
+              f"{usage.get('spill_loads')} bytes spill loads", flush=True)
+        if any(usage.get(k) != 0 for k in ("stack_frame", "spill_stores",
+                                           "spill_loads")):
+            raise AssertionError(f"decode_cluster<{dtype}, {epl}, {group}> "
+                                 f"uses local memory: {usage}")
+
+
 def phase_flash_forward(torch, fa, fa_ref, device) -> float:
     """Phase 8: the forward kernel vs its plain version over the sweep.
     Returns the largest absolute error."""
@@ -1237,67 +1306,222 @@ def phase_flash_forward(torch, fa, fa_ref, device) -> float:
     return worst
 
 
+def _fd_tiles(length, s_max, window, geometry) -> list:
+    """Row ``length``'s live keys as the decode kernel cuts them at its
+    geometry (cluster, keys a tile, slots): per rank of the cluster, its
+    tiles as (first key, keys)."""
+    cluster, keys, _ = geometry
+    lo = max(0, length - window) if window else 0
+    live = max(min(length, s_max) - lo, 0)
+    per = -(-live // cluster)
+    ranks = []
+    for r in range(cluster):
+        r0 = lo + r * per
+        n = max(0, min(lo + live, r0 + per) - r0)
+        ranks.append([(k0, min(keys, r0 + n - k0))
+                      for k0 in range(r0, r0 + n, keys)])
+    return ranks
+
+
+def _fd_faults(torch, fd_ref, q, kc, vc, lengths, kw, geometry) -> dict:
+    """The plain version with a planted fault each in row 0, as a kernel
+    with that fault would compute it at the library's geometry, each
+    planted only where it changes the output (the faulty row is attention
+    over the key list the fault leaves, in the list's order):
+
+    * a rank dropped: rank 1's partial (rank 0's where the cluster is one
+      block) left out of the merge;
+    * a stale slot: rank 0's tile ``slots`` read from its slot's previous
+      tile, tile 0 (a consumer that read before the full barrier);
+    * ragged tails dropped: every rank's last tile, where it is shorter
+      than a tile, left out."""
+    cluster, keys, slots = geometry
+    ranks = _fd_tiles(int(lengths[0]), kc.shape[2], kw["window"], geometry)
+
+    def rows(tiles):
+        return [k for k0, nk in tiles for k in range(k0, k0 + nk)]
+
+    every = [rows(t) for t in ranks]
+    lists = {}
+    r = 1 if cluster > 1 else 0
+    if every[r]:
+        lists[f"rank {r} of {cluster} dropped (keys [{every[r][0]}, "
+              f"{every[r][-1] + 1}))"] = [
+            k for i, ks in enumerate(every) if i != r for k in ks]
+    if len(ranks[0]) > slots:
+        (s0, _), (st, nt) = ranks[0][0], ranks[0][slots]
+        lists[f"stale slot (keys [{st}, {st + nt}) read as [{s0}, "
+              f"{s0 + nt}), {slots} slots of {keys} keys)"] = (
+            rows(ranks[0][:slots]) + list(range(s0, s0 + nt))
+            + rows(ranks[0][slots + 1:]) + [k for ks in every[1:] for k in ks])
+    tails = [t[-1] for t in ranks if t and t[-1][1] < keys]
+    if tails:
+        cut = {k for k0, nk in tails for k in range(k0, k0 + nk)}
+        lists[f"ragged tails dropped ({len(tails)} of {cluster} ranks, "
+              f"{len(cut)} keys)"] = [k for ks in every for k in ks
+                                      if k not in cut]
+    base = fd_ref(q, kc, vc, lengths, **kw)
+    faults = {}
+    for what, idx in lists.items():
+        faulty = base.clone()
+        faulty[0] = 0
+        if idx:
+            ii = torch.tensor(idx, device=kc.device)
+            faulty[0] = fd_ref(q[:1], kc[:1, :, ii], vc[:1, :, ii],
+                               torch.tensor([len(idx)], dtype=torch.int32,
+                                            device=q.device),
+                               softcap=kw["softcap"])[0]
+        faults[what] = faulty
+    return faults
+
+
+def _host_ms(torch, fn, reps: int = REPS) -> float:
+    """Host time per ``fn()`` call, without waiting for the device: what
+    the wrapper costs the caller (checks, the ctypes call, the launch)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e3 * host / reps
+
+
+def _fd_repeat(torch, fa, q, kc, vc, lengths, kw, cluster, want, tol,
+               label) -> str:
+    """Three calls bit for bit equal, the last two after a call at another
+    cluster size (held to the same tolerance: only the order of the sums
+    moves)."""
+    first = fa.decode_attention(q, kc, vc, lengths, **kw)
+    other = 2 if cluster == 1 else 1
+    moved = fa._decode_cuda(q, kc, vc, lengths, kw["window"], kw["softcap"],
+                            q.shape[-1] ** -0.5, cluster=other)
+    again = [fa.decode_attention(q, kc, vc, lengths, **kw) for _ in range(2)]
+    if not all(torch.equal(first, a) for a in again):
+        raise AssertionError(f"{label}: repeat calls differ after a call at "
+                             f"cluster size {other}")
+    e = _errors(torch, moved, want, tol)
+    if not e["ok"]:
+        raise AssertionError(f"{label}: at cluster size {other} max |err| "
+                             f"{e['max']:.3g}, relative L2 {e['rel_l2']:.3g}")
+    return (f"3 calls equal bit for bit (the last two after one at cluster "
+            f"size {other}, max |err| {e['max']:.3g} there)")
+
+
 def _fd_case(torch, fa, fd_ref, q, kc, vc, lengths, window, cap, dtype,
              label, *, timed, must_reject=True, reps=FA_REPS) -> dict:
-    """Decode kernel vs plain on these inputs: the error and the times.
-    The planted fault is the plain version with row 0's first split of
-    live V positions zeroed, as a kernel that dropped that split's
-    accumulator would compute.  Plain and library times only where
-    ``timed``."""
+    """Decode kernel vs plain on these inputs: the error, the planted
+    faults (``_fd_faults``), repeat calls, and the times (the wrapper's
+    with CUDA events and on the host, the kernel's device time).  Plain
+    and library times, and the kernel's device time at cluster sizes 8
+    and 16, only where ``timed``."""
     kw = dict(window=window, softcap=cap)
     tol = FD_TOL[dtype]
     lens = lengths.cpu().numpy()
-    b, hkv, s_max = kc.shape[0], kc.shape[1], kc.shape[2]
-    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-    splits = fa.n_splits_for(b, hkv, s_max, sms)
-    lo = max(0, int(lens[0]) - window) if window else 0
-    per = -(-int(_fd_live(lens, s_max, window)[0]) // splits)
-    v_fault = vc.clone()
-    v_fault[0, :, lo:lo + per] = 0
-    e, fs = _held(torch, fa.decode_attention(q, kc, vc, lengths, **kw),
-                  fd_ref(q, kc, vc, lengths, **kw),
-                  {f"row 0's split [{lo}, {lo + per}) of {splits} zeroed":
-                   fd_ref(q, kc, v_fault, lengths, **kw)}, tol, label,
-                  must_reject=must_reject)
-    del v_fault
-    ms = _median_ms(lambda: fa.decode_attention(q, kc, vc, lengths, **kw),
-                    reps=reps)
+    s_max = kc.shape[2]
+    geometry = fa.decode_geometry(q, kc)
+    want = fd_ref(q, kc, vc, lengths, **kw)
+    e, fs = _held(torch, fa.decode_attention(q, kc, vc, lengths, **kw), want,
+                  _fd_faults(torch, fd_ref, q, kc, vc, lengths, kw, geometry),
+                  tol, label, must_reject=must_reject)
+    repeat = _fd_repeat(torch, fa, q, kc, vc, lengths, kw, geometry[0], want,
+                        tol, label)
+    call = lambda: fa.decode_attention(q, kc, vc, lengths, **kw)  # noqa: E731
+    ms = _median_ms(call, reps=reps)
+    host = _host_ms(torch, call)
     plain_ms = lib_ms = None
+    sizes = ""
     if timed:
         plain_ms = _median_ms(lambda: fd_ref(q, kc, vc, lengths, **kw),
                               reps=reps, warmup=1)
         lib_ms = _median_ms(_sdpa_decode(torch, q, kc, vc, lengths, window,
                                          q.shape[-1] ** -0.5), reps=reps)
-    device_us = _device_us_per_call(
-        torch, lambda: fa.decode_attention(q, kc, vc, lengths, **kw),
-        FD_KERNELS, reps)
+        for c in (8, 16):
+            try:
+                us, _ = _kernel_us(torch, lambda: fa._decode_cuda(
+                    q, kc, vc, lengths, window, cap, q.shape[-1] ** -0.5,
+                    cluster=c), FD_KERNELS, reps)
+                sizes += (f"; at cluster size {c} "
+                          f"{'not measured' if us is None else f'{us:.2f} us'}")
+            except RuntimeError as err:
+                sizes += f"; cluster size {c} refused ({err})"
+    us, records = _kernel_us(torch, call, FD_KERNELS, reps)
     bound, by = _fd_bound_ms(q, kc, lens, window, dtype)
-    print(f"flash-decode {label}: {_err_text(e, fs, tol)}; kernel {ms:.4f} "
-          f"ms per wrapper call (device time {device_us}), bound "
-          f"{bound:.4f} ms ({by}; {int(_fd_live(lens, s_max, window).sum())}"
-          f" live keys), {_plain_text(plain_ms, lib_ms)}", flush=True)
+    print(f"flash-decode {label}: {_err_text(e, fs, tol)}; {repeat}; "
+          f"geometry (cluster, keys a tile, slots) {geometry}; "
+          f"decode_cluster {ms:.4f} ms per wrapper call, host "
+          f"{host:.4f} ms per call, device time "
+          f"{'not measured' if us is None else f'{us:.2f} us'} ({records} "
+          f"of {reps} records){sizes}; bound {bound:.4f} ms ({by}; "
+          f"{int(_fd_live(lens, s_max, window).sum())} live keys), "
+          f"{_plain_text(plain_ms, lib_ms)}", flush=True)
     return {"max_abs_err": e["max"], "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound, "bound_by": by, "library_ms": lib_ms}
+            "bound_ms": bound, "bound_by": by, "library_ms": lib_ms,
+            "device_us": us, "host_ms": host}
+
+
+def _fd_caches(torch, rng, b, hkv, s_max, d, dtype, shift, device):
+    """Standard-normal K and V caches (b, hkv, s_max, d) whose data start
+    ``shift`` bytes past a 16-byte boundary (views into a larger tensor)."""
+    n = b * hkv * s_max * d
+    out = []
+    for _ in range(2):
+        flat = _fa_tensors(torch, rng, [(n + 16,)], dtype, device)[0]
+        off = shift // flat.element_size()
+        out.append(flat[off:off + n].view(b, hkv, s_max, d))
+        if out[-1].data_ptr() % 16 != shift:
+            raise AssertionError(f"cache at byte {out[-1].data_ptr() % 16}"
+                                 f" of 16, want {shift}")
+    return out
 
 
 def phase_flash_decode(torch, fa, fd_ref, device) -> float:
-    """Phase 9: the split-K decode kernel vs its plain version over the
-    sweep.  Returns the largest absolute error."""
+    """Phase 9: the decode kernel vs its plain version over the sweep.
+    Returns the largest absolute error."""
     rng = np.random.default_rng(SEED + 9)
     worst = 0.0
-    for b, hq, hkv, s_max, d, window, cap, dtype in FD_CASES:
-        q, kc, vc = _fa_tensors(torch, rng, [(b, hq, d), (b, hkv, s_max, d),
-                                             (b, hkv, s_max, d)], dtype,
-                                device)
+    for b, hq, hkv, s_max, d, window, cap, dtype, shift in FD_CASES:
+        q = _fa_tensors(torch, rng, [(b, hq, d)], dtype, device)[0]
+        kc, vc = _fd_caches(torch, rng, b, hkv, s_max, d, dtype, shift,
+                            device)
         lens = rng.integers(1, s_max + 1, b)
         lens[0] = s_max
         lens[-1] = 1 if b > 1 else lens[-1]
         lengths = torch.from_numpy(lens.astype(np.int32)).to(device)
         label = (f"B={b} Hq={hq} Hkv={hkv} S_max={s_max} D={d} lengths "
-                 f"{lens.tolist()} window={window} softcap={cap} {dtype}")
-        worst = max(worst, _fd_case(
-            torch, fa, fd_ref, q, kc, vc, lengths, window, cap, dtype, label,
-            timed=_main_shape(b, hq, hkv, s_max, d))["max_abs_err"])
+                 f"{lens.tolist()} window={window} softcap={cap} {dtype}"
+                 + (f" caches at byte {shift} of 16" if shift else ""))
+        main = _main_shape(b, hq, hkv, s_max, d)
+        out = _fd_case(torch, fa, fd_ref, q, kc, vc, lengths, window, cap,
+                       dtype, label, timed=main)
+        worst = max(worst, out["max_abs_err"])
+        if main:
+            # the wrapper allocates the output and nothing else
+            before = torch.cuda.memory_stats()["allocation.all.allocated"]
+            fa.decode_attention(q, kc, vc, lengths, window=window,
+                                softcap=cap)
+            allocs = torch.cuda.memory_stats()["allocation.all.allocated"] \
+                - before
+            if allocs != 1:
+                raise AssertionError(f"flash-decode {label}: {allocs} "
+                                     f"allocations a call, want 1 (out)")
+            print(f"flash-decode {label}: 1 allocation a call (the output)",
+                  flush=True)
+        if shift:
+            # the same inputs from 16-byte aligned copies of the caches
+            ka, va = kc.clone(), vc.clone()
+            aligned, _ = _kernel_us(torch, lambda: fa.decode_attention(
+                q, ka, va, lengths, window=window, softcap=cap), FD_KERNELS)
+            ratio = None if aligned is None or out["device_us"] is None \
+                else out["device_us"] / aligned
+            print(f"flash-decode {label}: device time "
+                  f"{out['device_us']} us against {aligned} us from aligned "
+                  f"copies of the caches (x{ratio})", flush=True)
+            if ratio is not None and ratio > 3:
+                raise AssertionError(f"flash-decode {label}: {ratio:.2f}x "
+                                     f"the aligned caches' device time")
+            del ka, va
         del q, kc, vc
     # outside the wrapper's contract (lengths >= 1): a row of length 0
     # attends to no key, and the kernel answers 0 as the reference's
@@ -1332,6 +1556,67 @@ def _mean_times(a: dict, b: dict) -> dict:
     return out
 
 
+def _plain_witness(fa_ref, fd_ref, params, cfg, toks, max_len):
+    """The plain versions in the kernels' places: the last prefill logits
+    of ``toks`` and those of decoding its last token after a prefill one
+    token shorter (how far the model's own bfloat16 path moves prefill
+    from decode without the kernels)."""
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import decode_step, prefill_forward
+    calls = attn_mod.attention, attn_mod.decode_attention
+    attn_mod.attention, attn_mod.decode_attention = fa_ref, fd_ref
+    try:
+        last = prefill_forward(params, toks, cfg, max_len)[0]
+        _, short = prefill_forward(params, toks[:, :-1], cfg, max_len)
+        via_decode = decode_step(params, short, toks[:, -1:], cfg)[0]
+    finally:
+        attn_mod.attention, attn_mod.decode_attention = calls
+    return last, via_decode
+
+
+def _gemma_inputs(torch, cfg, seed, device):
+    """Phase 10's random weights and prompt at ``seed``."""
+    from repro_torch.models import init_params
+    params = init_params(seed, cfg, device=device)
+    rng = np.random.default_rng(seed + 10)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (1, GEMMA["prompt"]),
+                                         dtype=np.int64)).to(device)
+    return params, toks
+
+
+def logit_floor(torch, seeds, device) -> None:
+    """``--logit-floor``: phase 10's plain witness alone (no kernel is
+    built or run) at each seed, and the element excess
+    max(|diff| - rtol |want|) that ``LOGIT_TOL``'s atol is set from
+    (twice the largest over the seeds)."""
+    from repro_torch import configs
+    from repro_torch.kernels.flash_attention.ref import (chunked_attention,
+                                                         decode_ref)
+    cfg = configs.get(GEMMA["arch"])
+    max_len = GEMMA["prompt"] + GEMMA["decode_steps"]
+    excess = []
+    for seed in seeds:
+        params, toks = _gemma_inputs(torch, cfg, seed, device)
+        last, via_decode = _plain_witness(chunked_attention, decode_ref,
+                                          params, cfg, toks, max_len)
+        del params
+        diff = (via_decode - last).abs()
+        over = float((diff - LOGIT_TOL["rtol"] * last.abs()).max())
+        excess.append(over)
+        beyond = int((diff > LOGIT_TOL["atol"] + LOGIT_TOL["rtol"] *
+                      last.abs()).sum())
+        print(f"logit floor, seed {seed}: plain prefill vs decode max |diff| "
+              f"{float(diff.max()):.4g}, relative L2 "
+              f"{float(diff.norm() / last.norm()):.4g}, element excess "
+              f"max(|diff| - {LOGIT_TOL['rtol']} |want|) {over:.4g}, "
+              f"{beyond} beyond atol {LOGIT_TOL['atol']} + rtol "
+              f"{LOGIT_TOL['rtol']}; argmax {int(last.argmax())} / "
+              f"{int(via_decode.argmax())}", flush=True)
+        torch.cuda.empty_cache()
+    print(f"logit floor: largest element excess {max(excess):.4g} over "
+          f"seeds {list(seeds)}; twice it {2 * max(excess):.4g}", flush=True)
+
+
 def phase_gemma(torch, fa, fa_ref, fd_ref, device):
     """Phase 10: Gemma 2 9B at full width — prefill, decode, the kernels
     on captured layer inputs, and prefill-then-decode agreement.  Returns
@@ -1339,25 +1624,22 @@ def phase_gemma(torch, fa, fa_ref, fd_ref, device):
     times)."""
     from repro_torch import configs
     from repro_torch.models import attention as attn_mod
-    from repro_torch.models import decode_step, init_params, prefill_forward
+    from repro_torch.models import decode_step, prefill_forward
 
     cfg = configs.get(GEMMA["arch"])
     windows = attn_mod.window_schedule(cfg)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    params = init_params(SEED, cfg, device=device)
+    params, toks = _gemma_inputs(torch, cfg, SEED, device)
     torch.cuda.synchronize()
     print(f"gemma: {cfg.name} at full width ({cfg.n_layers} layers, d_model "
           f"{cfg.d_model}, {cfg.n_params()} parameters, {cfg.param_dtype}) "
           f"with random weights from seed {SEED} in "
           f"{time.perf_counter() - t0:.1f} s; windows of layers 0-3 "
           f"{windows[:4]}", flush=True)
-    rng = np.random.default_rng(SEED + 10)
     n, steps = GEMMA["prompt"], GEMMA["decode_steps"]
     max_len = n + steps
-    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (1, n),
-                                         dtype=np.int64)).to(device)
 
     # capture the real inputs of layers 0 (windowed) and 1 (global)
     captured = {"fwd": [], "dec": []}
@@ -1449,10 +1731,22 @@ def phase_gemma(torch, fa, fa_ref, fd_ref, device):
     print(f"gemma: warm prefill of {n - 1} tokens in {warm_s:.4f} s = "
           f"{(n - 1) / warm_s:.0f} tokens/s", flush=True)
     out = {}
-    _profile_step(torch, lambda: out.update(
+    events = _profile_step(torch, lambda: out.update(
         logits=decode_step(params, short_cache, toks[:, -1:], cfg)[0]),
         f"gemma: one decode step (B=1, cache {n})")
     via_decode = out["logits"]
+    # exactly one decode kernel a layer: the decode is one launch a call
+    decode_kernels = {ev.key: ev.count for ev in events
+                      if "decode" in ev.key}
+    if decode_kernels != {k: cfg.n_layers for k in decode_kernels} or \
+            len(decode_kernels) != 1 or \
+            not any(FD_KERNELS[0] in k for k in decode_kernels):
+        raise AssertionError(f"gemma: one decode step ran the decode "
+                             f"kernels {decode_kernels}, want "
+                             f"{FD_KERNELS[0]} x {cfg.n_layers}")
+    print(f"gemma: the decode step's profile holds {cfg.n_layers} "
+          f"{FD_KERNELS[0]} launches and no other decode kernel",
+          flush=True)
 
     # the second witness: the same paths with the plain versions in the
     # kernels' places — kernel vs plain on each path, and how far the
@@ -1460,14 +1754,11 @@ def phase_gemma(torch, fa, fa_ref, fd_ref, device):
     attn_mod.attention, attn_mod.decode_attention = fa_ref, fd_ref
     try:
         plain_dec = decode_step(params, short_cache, toks[:, -1:], cfg)[0]
-        del short_cache
-        plain_last = prefill_forward(params, toks, cfg, max_len)[0]
-        _, plain_short = prefill_forward(params, toks[:, :-1], cfg, max_len)
-        plain_via_decode = decode_step(params, plain_short, toks[:, -1:],
-                                       cfg)[0]
-        del plain_short
     finally:
         attn_mod.attention, attn_mod.decode_attention = fwd_call, dec_call
+    del short_cache
+    plain_last, plain_via_decode = _plain_witness(fa_ref, fd_ref, params,
+                                                  cfg, toks, max_len)
     tol, failures = LOGIT_TOL, []
     for what, got, want in (
             ("kernels: last prefill logits vs decoding the last token after "
@@ -1992,11 +2283,23 @@ def main(argv=None) -> int:
     parser.add_argument("--seed", type=int, default=SEED,
                         help="seed of every random weight, prompt and input "
                              f"(default {SEED})")
-    SEED = parser.parse_args(argv).seed
+    parser.add_argument("--logit-floor", type=int, nargs="+",
+                        metavar="SEED",
+                        help="only measure phase 10's plain witness (the "
+                             "model's own prefill-vs-decode logit gap, no "
+                             "kernels) at these seeds, and exit")
+    args = parser.parse_args(argv)
+    SEED = args.seed
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 2
+    if args.logit_floor:
+        print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True,
+                             text=True, check=True).stdout.strip())
+        logit_floor(torch, args.logit_floor, torch.device("cuda"))
+        return 0
     from repro_torch.kernels import _build
     from repro_torch.kernels.fused_fold import ops
     from repro_torch.kernels.fused_fold.ref import fused_streaming_fold_ref
@@ -2026,6 +2329,7 @@ def main(argv=None) -> int:
           f"together (nvcc, sm_90a, one process each) in "
           f"{time.perf_counter() - t0:.1f} s")
     wgmma_build_report(torch, _build, fa)
+    decode_build_report(_build)
     ops.library()
     hc.library()
     fa.library()
@@ -2090,7 +2394,7 @@ def main(argv=None) -> int:
                "launches": fa_launches}
     forward.update(fa_shape)
     forward["max_abs_err"] = max(fa_worst, fa_shape["max_abs_err"])
-    decode = {"name": "flash_decode", "route": "cuda",
+    decode = {"name": "decode_cluster", "route": "cuda",
               "source": "src/repro_torch/kernels/flash_attention/csrc/"
                         "flash_attention.cu",
               "replaces": "src/repro/kernels/flash_attention/kernel.py:156",

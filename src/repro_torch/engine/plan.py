@@ -255,16 +255,20 @@ class ExecutionPlan:
 
 def map_shards(shards: torch.Tensor, map_fn, n_workers: int):
     """The UDF on each worker's shard, its ``(keys, values, valid)``
-    outputs concatenated over the workers — the combine's input.  The UDF
-    sees one worker's shard at a time, as under the reference's ``vmap``,
-    so a UDF that is not row-wise behaves the same."""
+    outputs concatenated over the workers — the combine's input — on the
+    shards' device (a UDF may build a mask with ``torch.ones`` and no
+    device).  The UDF sees one worker's shard at a time, as under the
+    reference's ``vmap``, so a UDF that is not row-wise behaves the
+    same."""
     if shards.dim() < 1 or shards.shape[0] != n_workers:
         raise ValueError(f"expected {n_workers} worker shards along axis 0, "
                          f"got data of shape {tuple(shards.shape)}")
     outs = [map_fn(shards[w]) for w in range(n_workers)]
-    return (torch.cat([k.reshape(-1) for k, _, _ in outs]),
-            torch.cat([v for _, v, _ in outs]),
-            torch.cat([ok.reshape(-1) for _, _, ok in outs]).to(torch.bool))
+    dev = shards.device
+    return (torch.cat([k.reshape(-1).to(dev) for k, _, _ in outs]),
+            torch.cat([v.to(dev) for _, v, _ in outs]),
+            torch.cat([ok.reshape(-1).to(dev) for _, _, ok in outs])
+            .to(torch.bool))
 
 
 def _batch_body(shards: torch.Tensor, *, plan: ExecutionPlan, map_fn,

@@ -5,7 +5,8 @@ package's ``csrc/``.  ``load_library(name)`` compiles it with ``nvcc``
 for Hopper (``sm_90a``) into ``build/kernels/`` at the repository root —
 a directory ``.gitignore`` lists — the first time it is asked for, and
 loads the shared library with ``ctypes``.  The file name carries a hash of
-the source, so an edited kernel is rebuilt and a stale one never loads.
+the sources (the ``.cu`` and the headers beside it), so an edited kernel
+is rebuilt and a stale one never loads.
 ``build_all(names)`` builds several kernels at once, one ``nvcc`` each.
 ``ptxas -v``'s report of every kernel's registers, spills and shared
 memory is kept beside the library (``build_log(name)``).  Nothing here
@@ -55,11 +56,13 @@ def find_nvcc() -> str:
 
 
 def _target(name: str) -> pathlib.Path:
-    """Where a build of kernel ``name``'s current source lives."""
-    src = source_path(name)
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """Where a build of kernel ``name``'s current source lives: the name
+    carries a hash of every file in its ``csrc/`` (the ``.cu`` and the
+    headers it includes) and of the flags."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sorted(source_path(name).parent.iterdir()):
+        digest.update(src.name.encode() + src.read_bytes())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build_all(names) -> dict[str, pathlib.Path]:
@@ -104,7 +107,9 @@ def build_log(name: str) -> str:
 
 def ptxas_usage(report: str) -> dict[str, dict[str, int]]:
     """Per kernel (mangled name) in a ``ptxas -v`` report: its
-    ``registers`` and its ``spill_stores`` and ``spill_loads`` in bytes."""
+    ``registers``, and its ``stack_frame`` (local memory: arrays the
+    compiler could not keep in registers), ``spill_stores`` and
+    ``spill_loads`` in bytes."""
     usage, current = {}, None
     for line in report.splitlines():
         entry = re.search(r"(?:Compiling entry function|Function properties "
@@ -114,6 +119,9 @@ def ptxas_usage(report: str) -> dict[str, dict[str, int]]:
             continue
         if current is None:
             continue
+        stack = re.search(r"(\d+) bytes stack frame", line)
+        if stack:
+            current["stack_frame"] = int(stack.group(1))
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                           line)
         if spill:

@@ -59,15 +59,41 @@
 //   * fwd_rows (float32, and bfloat16 at other head dims): one warp per
 //     query row walks its live key range with float32 FMAs; each lane
 //     holds D/32 dimensions of q and of the accumulator.
-//   * decode: split-K.  With B = 4 and Hkv = 8 the TPU grid has 32
-//     (batch, kv head) programs for 132 SMs, so the live range of each
-//     row is cut into n_splits pieces (chosen by the wrapper from the SM
-//     count), one block each.  A block loads the q vectors of the whole
-//     GQA group that shares its kv head, so each K/V row is read once
-//     for the group; its 4 warps take every fourth key, and their states
-//     merge in shared memory into one partial (m, l, acc) per split,
-//     written to scratch the wrapper allocates.  decode_combine merges the
-//     splits.  lengths is read on the device: no host sync per step.
+//   * decode_cluster: split-K decode as one launch.  At B = 1 and Hkv = 8
+//     the TPU grid has 8 (batch, kv head) programs for 132 SMs, so the
+//     live range [max(0, len - window), min(len, S)) of each (row, kv
+//     head) is cut among the C blocks of a thread-block cluster: grid (C,
+//     Hkv, B), cluster (C, 1, 1), C from the rule in decode_geometry.h
+//     (the largest size up to 8 that keeps all blocks resident, one an
+//     SM; no split under 64 keys of S; sizes up to 16 launch on request,
+//     but a 16-block cluster ran slower at Gemma's shapes).  The ranges
+//     come from lengths on the device: no host sync per step.
+//     - Loads: one producer thread copies the rank's K and V rows into a
+//       ring of shared-memory slots with cp.async.bulk, one copy per
+//       operand and tile (a (row, kv head)'s rows are contiguous), each
+//       slot with a full and an empty mbarrier.  A range that does not
+//       start on a 16-byte boundary is copied as the 16-byte envelope
+//       around it and read at its offset, so any base and head dim take
+//       the same path.
+//     - Products: two groups of four consumer warps take turns at the
+//       tiles, so two tiles are in work while the others load.  A warp
+//       holds q of the whole GQA group (in registers, or in shared memory
+//       at a group of 8 with 8 dimensions a lane), lanes over dimensions,
+//       and takes 8 keys a step (4 at groups of 4 and 8, 2 at 8 with 8
+//       dimensions a lane): the 32 or fewer scores in float32 go through
+//       one warp reduction (a
+//       butterfly that leaves each score in a few lanes), the lane that
+//       holds a score takes its softcap and exponent, and the results
+//       reach every lane through shared memory; the softmax is online in
+//       log2 units with the forward's softcap formula; m, l and acc are
+//       float32.
+//     - Merge: the warps' states merge in the block's shared memory; after
+//       a cluster barrier rank 0 reads every rank's (m, l, acc) through
+//       distributed shared memory, merges them in rank order, normalises
+//       and writes the output (an empty rank brings m = -inf, l = 0; a row
+//       with no live key writes 0); a second barrier keeps the blocks
+//       resident until it has read them.  Nothing but the output leaves
+//       the launch, and it keeps nothing between calls.
 //
 // What bounds it on an H100.  Prefill is compute-bound: at one 8192-token
 // Gemma 2 prompt a global layer does 4 * 16 * 256 * 8192^2 / 2 flops of
@@ -83,12 +109,21 @@
 // mostly from L2 (each is read by the 64 q tiles of its head).
 // Decode is byte-bound: it reads each live cache row of K and V once (67
 // MB per global layer at B = 1, len = 8192, D = 256: 0.020 ms at 3.35
-// TB/s).
+// TB/s).  At C = 8 that is 64 blocks, each of which must keep about 52 KB
+// in flight at ~1 us of latency (Little's law); the ring's 6 slots of 32
+// KB hold up to 192 KB.  The FMAs (2 G D a key, in float32 on the CUDA
+// cores) need a tenth of the cores' rate at Gemma's group of 2 and about
+// 40% at a group of 8 and D = 128, so the scores stay off the tensor
+// cores; what holds the kernel above its bound is the latency of each
+// warp's step (the loads, the reduction, the exponents) with 8 consumer
+// warps an SM, and a fixed cost of launch, first tile and merge (the
+// one-key case of chip_smoke.py's phase 9 measures it).
 //
 // Interface: plain C, loaded with ctypes.  The kernels launch on the
 // caller's stream, do not synchronise and allocate nothing; each entry
 // point returns cudaGetLastError() so a refused launch surfaces at once.
 
+#include <cooperative_groups.h>
 #include <cuda.h>  // CUtensorMap and its enums (types only)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -96,14 +131,16 @@
 
 #include <type_traits>
 
+#include "decode_geometry.h"
+
 namespace {
 
 typedef __nv_bfloat16 bf16;
 
 constexpr int kDtypeBF16 = 1;
-constexpr int kThreads = 128;  // 4 warps in fwd_rows and decode
+constexpr int kThreads = 128;  // 4 warps in fwd_rows
 constexpr int kWarps = kThreads / 32;
-constexpr int kUnroll = 4;     // keys loaded per warp step (FMA paths)
+constexpr int kUnroll = 4;     // keys loaded per warp step (fwd_rows)
 constexpr float kNegInf = -1e30f;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -149,24 +186,24 @@ __device__ __forceinline__ void load_row(const T* row, int lane, int D,
     out[e] = base + e < D ? to_f(row[base + e]) : 0.f;
 }
 
-// One warp's online softmax over keys lo, lo + step, ... < hi for the G
-// query vectors q[0 .. group) that share these K/V rows.  (m, l, acc) carry
-// the running max, the running sum of exp(s - m) and the unnormalised
-// output; every lane holds the same m and l, and its own dimensions of acc.
-template <typename T, int EPL, int G>
-__device__ __forceinline__ void attend(const float (&q)[G][EPL], int group,
+// One warp's online softmax over keys lo .. hi - 1 for one query vector
+// q.  (m, l, acc) carry the running max, the running sum of exp(s - m) and
+// the unnormalised output; every lane holds the same m and l, and its own
+// dimensions of acc.
+template <typename T, int EPL>
+__device__ __forceinline__ void attend(const float (&q)[EPL],
                                        const T* __restrict__ kb,
                                        const T* __restrict__ vb, int D,
-                                       int lo, int hi, int step, float scale,
-                                       float softcap, float (&m)[G],
-                                       float (&l)[G], float (&acc)[G][EPL]) {
+                                       int lo, int hi, float scale,
+                                       float softcap, float& m, float& l,
+                                       float (&acc)[EPL]) {
   const int lane = threadIdx.x & 31;
-  for (int j = lo; j < hi; j += kUnroll * step) {
+  for (int j = lo; j < hi; j += kUnroll) {
     float kr[kUnroll][EPL], vr[kUnroll][EPL];
     bool ok[kUnroll];
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
-      const int key = j + u * step;
+      const int key = j + u;
       ok[u] = key < hi;
       if (ok[u]) {
         load_row<T, EPL>(kb + (long long)key * D, lane, D, kr[u]);
@@ -176,35 +213,31 @@ __device__ __forceinline__ void attend(const float (&q)[G][EPL], int group,
         for (int e = 0; e < EPL; ++e) kr[u][e] = vr[u][e] = 0.f;
       }
     }
+    float s[kUnroll];
+    float mx = kNegInf;
 #pragma unroll
-    for (int g = 0; g < G; ++g) {
-      if (g >= group) break;
-      float s[kUnroll];
-      float mx = kNegInf;
+    for (int u = 0; u < kUnroll; ++u) {
+      float dot = 0.f;
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        float dot = 0.f;
-#pragma unroll
-        for (int e = 0; e < EPL; ++e) dot = fmaf(q[g][e], kr[u][e], dot);
-        dot = apply_cap(warp_sum(dot) * scale, softcap);
-        s[u] = ok[u] ? dot : -INFINITY;
-        mx = fmaxf(mx, s[u]);
-      }
-      const float m_new = fmaxf(m[g], mx);
-      const float alpha = __expf(m[g] - m_new);
-      float psum = 0.f;
-#pragma unroll
-      for (int e = 0; e < EPL; ++e) acc[g][e] *= alpha;
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        const float p = __expf(s[u] - m_new);  // exp(-inf) = 0: masked keys
-        psum += p;
-#pragma unroll
-        for (int e = 0; e < EPL; ++e) acc[g][e] = fmaf(p, vr[u][e], acc[g][e]);
-      }
-      l[g] = l[g] * alpha + psum;
-      m[g] = m_new;
+      for (int e = 0; e < EPL; ++e) dot = fmaf(q[e], kr[u][e], dot);
+      dot = apply_cap(warp_sum(dot) * scale, softcap);
+      s[u] = ok[u] ? dot : -INFINITY;
+      mx = fmaxf(mx, s[u]);
     }
+    const float m_new = fmaxf(m, mx);
+    const float alpha = __expf(m - m_new);
+    float psum = 0.f;
+#pragma unroll
+    for (int e = 0; e < EPL; ++e) acc[e] *= alpha;
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const float p = __expf(s[u] - m_new);  // exp(-inf) = 0: masked keys
+      psum += p;
+#pragma unroll
+      for (int e = 0; e < EPL; ++e) acc[e] = fmaf(p, vr[u][e], acc[e]);
+    }
+    l = l * alpha + psum;
+    m = m_new;
   }
 }
 
@@ -224,20 +257,20 @@ fwd_rows(const T* __restrict__ q, const T* __restrict__ k,
   const int hk = h / (Hq / Hkv);
   const long long qrow = ((long long)(b * Hq + h) * Sq + row) * D;
   const long long kvbase = (long long)(b * Hkv + hk) * Skv * D;
-  float qv[1][EPL];
-  load_row<T, EPL>(q + qrow, lane, D, qv[0]);
+  float qv[EPL];
+  load_row<T, EPL>(q + qrow, lane, D, qv);
   const int lo = window > 0 ? max(0, row - window + 1) : 0;
   const int hi = causal ? min(Skv, row + 1) : Skv;
-  float m[1] = {kNegInf}, l[1] = {0.f}, acc[1][EPL];
+  float m = kNegInf, l = 0.f, acc[EPL];
 #pragma unroll
-  for (int e = 0; e < EPL; ++e) acc[0][e] = 0.f;
-  attend<T, EPL, 1>(qv, 1, k + kvbase, v + kvbase, D, lo, hi, 1, scale,
-                    softcap, m, l, acc);
-  const float inv = l[0] > 0.f ? 1.f / l[0] : 0.f;
+  for (int e = 0; e < EPL; ++e) acc[e] = 0.f;
+  attend<T, EPL>(qv, k + kvbase, v + kvbase, D, lo, hi, scale, softcap, m, l,
+                 acc);
+  const float inv = l > 0.f ? 1.f / l : 0.f;
 #pragma unroll
   for (int e = 0; e < EPL; ++e) {
     const int dim = lane * EPL + e;
-    if (dim < D) store(o + qrow + dim, acc[0][e] * inv);
+    if (dim < D) store(o + qrow + dim, acc[e] * inv);
   }
 }
 
@@ -878,114 +911,487 @@ fwd_wgmma(const __grid_constant__ CUtensorMap tq,
 }
 
 // ---------------------------------------------------------------------------
-// Split-K decode.
+// Split-K decode: one cluster launch.
 // ---------------------------------------------------------------------------
 
-// One block per (split, kv head, batch row).  Writes the split's partial
-// (m, l, acc) for each q head of the group to pm / pl: (B, Hq, n_splits)
-// and pacc: (B, Hq, n_splits, D).
-template <typename T, int EPL, int G>
-__global__ void __launch_bounds__(kThreads)
-decode_split(const T* __restrict__ q, const T* __restrict__ kc,
-             const T* __restrict__ vc, const int* __restrict__ lengths,
-             float* __restrict__ pm, float* __restrict__ pl,
-             float* __restrict__ pacc, int Hq, int Hkv, int S, int D,
-             int window, float softcap, float scale, int n_splits) {
-  extern __shared__ float ws[];  // [kWarps][G][2 + D]: m, l, acc per warp
-  const int split = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
-  const int group = Hq / Hkv;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+namespace dg = decode_geometry;
 
-  const int len = lengths[b];
-  const int lo = window > 0 ? max(0, len - window) : 0;
-  const int hi = min(len, S);
-  const int live = max(hi - lo, 0);
-  const int per = (live + n_splits - 1) / n_splits;
-  const int s0 = lo + split * per;
-  const int s1 = min(hi, s0 + per);
+// cp.async.bulk: `bytes` (a multiple of 16) from global `src` (16-byte
+// aligned) into shared memory at `dst`; the bytes complete on `bar`.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          int bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
 
-  float qv[G][EPL];
+// The dimension a lane holds in its e-th register: a contiguous run of EPL
+// (vector loads from rows that start on 16-byte boundaries), or every 32nd
+// (scalar loads, conflict-free in shared memory from any element offset).
+template <bool VEC, int EPL>
+__device__ __forceinline__ int dim_of(int lane, int e) {
+  return VEC ? lane * EPL + e : lane + 32 * e;
+}
+
+// Two bfloat16 (the low and the high half of a 32-bit word) or one
+// float32 word as float32: bit operations only, so the loaded vectors stay
+// in registers.
+__device__ __forceinline__ void unpack(uint32_t w, float* out, bf16) {
+  out[0] = __uint_as_float(w << 16);
+  out[1] = __uint_as_float(w & 0xffff0000u);
+}
+__device__ __forceinline__ void unpack(uint32_t w, float* out, float) {
+  out[0] = __uint_as_float(w);
+}
+
+// Lane `lane`'s EPL elements of a D-long row in shared memory, as float32;
+// dimensions at or past D read 0.
+template <typename T, int EPL, bool VEC>
+__device__ __forceinline__ void smem_row(const T* row, int lane, int D,
+                                         float (&out)[EPL]) {
+  constexpr int kBytes = (int)sizeof(T) * EPL;
+  constexpr int kPer = 4 / (int)sizeof(T);  // elements a 32-bit word
+  if constexpr (VEC && kBytes % 4 == 0) {
+    if ((lane + 1) * EPL <= D) {
+      const T* p = row + lane * EPL;
+      if constexpr (kBytes >= 16) {
 #pragma unroll
-  for (int g = 0; g < G; ++g) {
-    if (g < group) {
-      load_row<T, EPL>(q + (long long)(b * Hq + hk * group + g) * D, lane, D,
-                       qv[g]);
-    } else {
+        for (int c = 0; c < kBytes / 16; ++c) {
+          const uint4 v = reinterpret_cast<const uint4*>(p)[c];
+          const uint32_t w[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
-      for (int e = 0; e < EPL; ++e) qv[g][e] = 0.f;
+          for (int i = 0; i < 4; ++i)
+            unpack(w[i], out + (4 * c + i) * kPer, T());
+        }
+      } else if constexpr (kBytes == 8) {
+        const uint2 v = *reinterpret_cast<const uint2*>(p);
+        unpack(v.x, out, T());
+        unpack(v.y, out + kPer, T());
+      } else {
+        unpack(*reinterpret_cast<const uint32_t*>(p), out, T());
+      }
+      return;
     }
   }
+#pragma unroll
+  for (int e = 0; e < EPL; ++e) {
+    const int dim = dim_of<VEC, EPL>(lane, e);
+    out[e] = dim < D ? to_f(row[dim]) : 0.f;
+  }
+}
+
+// One butterfly level of warp_scatter: of the 2 H values left, a lane
+// keeps the half its lane bit (offset 32 H / N) picks and adds its
+// partner's copy of that half.  Template recursion keeps every index a
+// constant, so the values stay in registers.
+template <int H, int N>
+__device__ __forceinline__ void scatter_level(float (&s)[N], int lane,
+                                              int& idx) {
+  if constexpr (H >= 1) {
+    constexpr int o = 32 * H / N;
+    const bool up = (lane & o) != 0;
+    idx += up ? H : 0;
+#pragma unroll
+    for (int j = 0; j < H; ++j) {
+      const float send = up ? s[j] : s[j + H];
+      const float keep = up ? s[j + H] : s[j];
+      s[j] = keep + __shfl_xor_sync(0xffffffffu, send, o);
+    }
+    scatter_level<H / 2, N>(s, lane, idx);
+  }
+}
+
+// The warp totals of N partial sums (N a power of two, 4 <= N <= 32): a
+// butterfly that halves the values each level (lane bits 4, 3, ... pick
+// which half a lane keeps), then the lanes that share a value finish it.
+// Returns the total of value `idx` (the same for the 32 / N lanes that
+// hold it); N - 1 + 5 - log2(N) shuffles instead of 5 N.
+template <int N>
+__device__ __forceinline__ float warp_scatter(float (&s)[N], int lane,
+                                              int& idx) {
+  static_assert(N >= 4 && N <= 32 && (N & (N - 1)) == 0,
+                "N is a power of two from 4 to 32");
+  idx = 0;
+  scatter_level<N / 2, N>(s, lane, idx);
+  float x = s[0];
+#pragma unroll
+  for (int o = 32 / N / 2; o > 0; o >>= 1)
+    x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+// Every lane's copy of the N values x that lanes hold by index idx (as
+// warp_scatter leaves them), through `scratch` (N floats of this warp).
+template <int N>
+__device__ __forceinline__ void warp_gather(float x, int idx, float* scratch,
+                                            int lane, float (&out)[N]) {
+  constexpr int kShare = 32 / N;  // lanes that hold each value
+  if ((lane & (kShare - 1)) == 0) scratch[idx] = x;
+  __syncwarp();
+#pragma unroll
+  for (int j = 0; j < N; j += 4) {
+    const float4 v = *reinterpret_cast<const float4*>(scratch + j);
+    out[j] = v.x;
+    out[j + 1] = v.y;
+    out[j + 2] = v.z;
+    out[j + 3] = v.w;
+  }
+  __syncwarp();
+}
+
+// Lane `lane`'s EPL dimensions of row g of the group's q, kept in shared
+// memory as float32 (G x D), in the layout dim_of gives.
+template <int EPL, bool VEC>
+__device__ __forceinline__ void q_row(const float* qs, int g, int lane,
+                                      int D, float (&out)[EPL]) {
+#pragma unroll
+  for (int e = 0; e < EPL; ++e) {
+    const int dim = dim_of<VEC, EPL>(lane, e);
+    out[e] = dim < D ? qs[g * D + dim] : 0.f;
+  }
+}
+
+// One consumer warp's share of a tile of nk keys (K rows at kt, V rows at
+// vt, in shared memory): steps of U keys, the group's warps interleaved.
+// A step takes the G x U scores of the group against its keys in float32,
+// then the online softmax in log2 units: t = s k1, or with the softcap c
+// t = c1 - c2 / (1 + 2^(s k1)) = log2(e) c tanh(s scale / c), as the
+// forward computes it; m <- max(m, t), alpha = 2^(m_old - m), l <- l alpha
+// + sum 2^(t - m), acc <- acc alpha + sum 2^(t - m) v.  Every lane holds
+// the same scores, m and l, and its own dimensions of acc.  q sits in
+// registers (qv), or where it would not fit (q_in_smem) in shared memory
+// (qs), read a row at a time; one K or V row is live at a time.
+template <typename T, int EPL, int G, bool VEC>
+__device__ __forceinline__ void consume_tile(
+    const T* kt, const T* vt, int nk, int D, int group,
+    const float (&qv)[G][EPL], const float* qs, bool cap, float k1,
+    float c1, float c2, float (&m)[G], float (&l)[G], float (&acc)[G][EPL],
+    float* scratch, int wi, int lane) {
+  constexpr int U = dg::step_keys(G, EPL);
+  constexpr int kStride = dg::kGroupWarps * U;
+  for (int j = wi * U; j < nk; j += kStride) {
+    float s[G * U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      float kr[EPL];
+      if (j + u < nk) {
+        smem_row<T, EPL, VEC>(kt + (j + u) * D, lane, D, kr);
+      } else {
+#pragma unroll
+        for (int e = 0; e < EPL; ++e) kr[e] = 0.f;
+      }
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        float qr[EPL];
+        if constexpr (dg::q_in_smem(G, EPL)) {
+          q_row<EPL, VEC>(qs, g, lane, D, qr);
+        } else {
+#pragma unroll
+          for (int e = 0; e < EPL; ++e) qr[e] = qv[g][e];
+        }
+        float dot[2] = {0.f, 0.f};  // two chains of EPL / 2
+#pragma unroll
+        for (int e = 0; e < EPL; ++e)
+          dot[e & 1] = fmaf(qr[e], kr[e], dot[e & 1]);
+        s[g * U + u] = dot[0] + dot[1];
+      }
+    }
+    // The lane that holds score (g, u) after the reduction takes its
+    // softcap and exponent; every lane takes the maxima and the rescale.
+    int idx;
+    const float x = warp_scatter<G * U>(s, lane, idx);
+    const int g_own = idx / U, u_own = idx % U;
+    float t = cap ? fmaf(-c2, rcp(1.f + ex2(x * k1)), c1) : x * k1;
+    if (j + u_own >= nk) t = -INFINITY;
+    warp_gather<G * U>(t, idx, scratch, lane, s);
+    float m_own = 0.f;
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      if (g >= group) break;
+      float mx = -INFINITY;
+#pragma unroll
+      for (int u = 0; u < U; ++u) mx = fmaxf(mx, s[g * U + u]);
+      // key j is live, so m_new is finite; the first step's alpha is
+      // 2^-inf = 0
+      const float m_new = fmaxf(m[g], mx);
+      const float alpha = ex2(m[g] - m_new);
+      if (alpha != 1.f) {  // the same in every lane
+#pragma unroll
+        for (int e = 0; e < EPL; ++e) acc[g][e] *= alpha;
+      }
+      l[g] *= alpha;
+      m[g] = m_new;
+      m_own = g == g_own ? m_new : m_own;
+    }
+    // p = 2^(t - m) (2^-inf = 0 for keys past nk), then to every lane
+    warp_gather<G * U>(ex2(t - m_own), idx, scratch, lane, s);
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      if (g >= group) break;
+#pragma unroll
+      for (int u = 0; u < U; ++u) l[g] += s[g * U + u];
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (j + u >= nk) break;
+      float vr[EPL];
+      smem_row<T, EPL, VEC>(vt + (j + u) * D, lane, D, vr);
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        if (g >= group) break;
+#pragma unroll
+        for (int e = 0; e < EPL; ++e)
+          acc[g][e] = fmaf(s[g * U + u], vr[e], acc[g][e]);
+      }
+    }
+  }
+}
+
+// A consumer warp's walk over its group's tiles of the rank (tiles q, q +
+// kGroups, ...): each waited for on its full barrier and released on its
+// empty barrier (one arrival per warp of the group).  A tile's kt / vt sit
+// at the envelope offset of its first row's address in its slot.
+template <typename T, int EPL, int G, bool VEC>
+__device__ __forceinline__ void consume(
+    const float* qs, const unsigned char* kbase, const unsigned char* vbase,
+    const unsigned char* ring, uint32_t full, uint32_t empty,
+    const dg::Tile& t, int r0, int n, int D, int group, bool cap, float k1,
+    float c1, float c2, float (&m)[G], float (&l)[G], float (&acc)[G][EPL],
+    float* scratch, int warp, int lane) {
+  float qv[G][EPL];
+  if constexpr (!dg::q_in_smem(G, EPL)) {
+#pragma unroll
+    for (int g = 0; g < G; ++g) q_row<EPL, VEC>(qs, g, lane, D, qv[g]);
+  }
+  const int row = D * (int)sizeof(T);
+  const int ntiles = (n + t.keys - 1) / t.keys;
+  const int wi = warp % dg::kGroupWarps;
+  for (int i = warp / dg::kGroupWarps; i < ntiles; i += dg::kGroups) {
+    const int slot = i % t.slots;
+    const int k0 = r0 + i * t.keys;
+    const int nk = min(t.keys, r0 + n - k0);
+    const uintptr_t ka =
+        reinterpret_cast<uintptr_t>(kbase) + (long long)k0 * row;
+    const uintptr_t va =
+        reinterpret_cast<uintptr_t>(vbase) + (long long)k0 * row;
+    const T* kt = reinterpret_cast<const T*>(ring + 2 * slot * t.slot_bytes +
+                                             (ka & 15));
+    const T* vt = reinterpret_cast<const T*>(
+        ring + (2 * slot + 1) * t.slot_bytes + (va & 15));
+    mbar_wait(full + 8 * slot, (i / t.slots) & 1);
+    consume_tile<T, EPL, G, VEC>(kt, vt, nk, D, group, qv, qs, cap, k1, c1,
+                                 c2, m, l, acc, scratch, wi, lane);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + 8 * slot);
+  }
+}
+
+// The producer's load of tile i (keys r0 + i keys .. of this rank, n in
+// all) into slot i % slots: once the consumers have released the slot's
+// previous tile (the empty barrier's phase before this use; the first
+// use passes at once), the full barrier expects the bytes and one bulk
+// copy per operand brings the rows, as the 16-byte envelope around them.
+template <typename T>
+__device__ __forceinline__ void load_tile(uint32_t ring, uint32_t full,
+                                          uint32_t empty, const dg::Tile& t,
+                                          const unsigned char* kbase,
+                                          const unsigned char* vbase, int r0,
+                                          int n, int D, int i) {
+  const int row = D * (int)sizeof(T);
+  const int slot = i % t.slots;
+  const int k0 = r0 + i * t.keys;
+  const int bytes = min(t.keys, r0 + n - k0) * row;
+  const uintptr_t ka = reinterpret_cast<uintptr_t>(kbase) + (long long)k0 * row;
+  const uintptr_t va = reinterpret_cast<uintptr_t>(vbase) + (long long)k0 * row;
+  const uintptr_t k_lo = ka & ~uintptr_t(15);
+  const uintptr_t v_lo = va & ~uintptr_t(15);
+  const int k_bytes = (int)(((ka + bytes + 15) & ~uintptr_t(15)) - k_lo);
+  const int v_bytes = (int)(((va + bytes + 15) & ~uintptr_t(15)) - v_lo);
+  mbar_wait(empty + 8 * slot, ((i / t.slots) & 1) ^ 1);
+  mbar_expect_tx(full + 8 * slot, k_bytes + v_bytes);
+  bulk_load(ring + 2 * slot * t.slot_bytes, reinterpret_cast<const void*>(k_lo),
+            k_bytes, full + 8 * slot);
+  bulk_load(ring + (2 * slot + 1) * t.slot_bytes,
+            reinterpret_cast<const void*>(v_lo), v_bytes, full + 8 * slot);
+}
+
+// One cluster of C blocks per (kv head, batch row): grid (C, Hkv, B),
+// cluster (C, 1, 1).  Rank r of the cluster walks the r-th C-th of the
+// row's live range [max(0, len - window), min(len, S)), computed here from
+// lengths; one producer thread feeds a ring of K/V tiles with bulk copies,
+// two groups of four consumer warps take turns at its tiles; the warps'
+// states merge in the block's shared memory, then rank 0 merges the ranks'
+// (m, l, acc) in rank order through distributed shared memory and writes
+// the output.  Nothing else leaves the launch.
+template <typename T, int EPL, int G>
+__global__ void __launch_bounds__(dg::kThreads, 1)
+decode_cluster(const T* __restrict__ q, const T* __restrict__ kc,
+               const T* __restrict__ vc, const int* __restrict__ lengths,
+               T* __restrict__ out, int Hq, int Hkv, int S, int D,
+               int window, int cap, float k1, float c1, float c2, int vec) {
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int hk = blockIdx.y, b = blockIdx.z;
+  const int group = Hq / Hkv;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const dg::Tile t = dg::tile(D, (int)sizeof(T), G);
+  const dg::Layout lay = dg::layout(t, D, G);
+
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base =
+      smem_raw + (((smem_u32(smem_raw) + 127u) & ~127u) - smem_u32(smem_raw));
+  const uint32_t ring_s = smem_u32(base);
+  const uint32_t full = ring_s + lay.barriers;
+  const uint32_t empty = full + 8 * t.slots;
+  float* qs = reinterpret_cast<float*>(base + lay.q);
+
+  // this rank's keys [r0, r0 + n)
+  const int len = lengths[b];
+  const int lo = window > 0 ? max(0, len - window) : 0;
+  const int live = max(min(len, S) - lo, 0);
+  const int per = (live + C - 1) / C;
+  const int r0 = lo + rank * per;
+  const int n = max(0, min(lo + live, r0 + per) - r0);
+
+  const long long slice = (long long)(b * Hkv + hk) * S * D;
+  const unsigned char* kbase = reinterpret_cast<const unsigned char*>(kc + slice);
+  const unsigned char* vbase = reinterpret_cast<const unsigned char*>(vc + slice);
+  const int ntiles = (n + t.keys - 1) / t.keys;
+  const bool producer = warp == dg::kWarps && lane == 0;
+  // The producer sets up the barriers and sends the first tiles out (their
+  // slots start empty) before q is read.
+  if (producer) {
+    for (int s = 0; s < t.slots; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, dg::kGroupWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int i = 0; i < min(ntiles, t.slots); ++i)
+      load_tile<T>(ring_s, full, empty, t, kbase, vbase, r0, n, D, i);
+  }
+  const T* qg = q + (long long)(b * Hq + hk * group) * D;
+  for (int i = threadIdx.x; i < G * D; i += dg::kThreads)
+    qs[i] = i < group * D ? to_f(qg[i]) : 0.f;
+  __syncthreads();
+
   float m[G], l[G], acc[G][EPL];
 #pragma unroll
   for (int g = 0; g < G; ++g) {
-    m[g] = kNegInf;
+    m[g] = -INFINITY;
     l[g] = 0.f;
 #pragma unroll
     for (int e = 0; e < EPL; ++e) acc[g][e] = 0.f;
   }
-  const long long kvbase = (long long)(b * Hkv + hk) * S * D;
-  attend<T, EPL, G>(qv, group, kc + kvbase, vc + kvbase, D, s0 + warp, s1,
-                    kWarps, scale, softcap, m, l, acc);
-
-  const int row = 2 + D;
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    if (g >= group) break;
-    float* w = ws + (warp * G + g) * row;
-    if (lane == 0) {
-      w[0] = m[g];
-      w[1] = l[g];
+  if (warp == dg::kWarps) {
+    // Producer: tile i into slot i % slots once the consumers released the
+    // slot's tile i - slots.
+    if (producer) {
+      for (int i = t.slots; i < ntiles; ++i)
+        load_tile<T>(ring_s, full, empty, t, kbase, vbase, r0, n, D, i);
     }
+  } else {
+    float* scratch = reinterpret_cast<float*>(base + lay.scratch) +
+                     warp * G * dg::step_keys(G, EPL);
+    if (vec)
+      consume<T, EPL, G, true>(qs, kbase, vbase, base, full, empty, t, r0, n,
+                               D, group, cap != 0, k1, c1, c2, m, l, acc,
+                               scratch, warp, lane);
+    else
+      consume<T, EPL, G, false>(qs, kbase, vbase, base, full, empty, t, r0,
+                                n, D, group, cap != 0, k1, c1, c2, m, l, acc,
+                                scratch, warp, lane);
+  }
+  __syncthreads();  // every tile consumed: the ring is free
+
+  // The warps' states, then the block's: over the ring, m and l first.
+  float* states = reinterpret_cast<float*>(base + lay.states);
+  if (warp < dg::kWarps) {
 #pragma unroll
-    for (int e = 0; e < EPL; ++e) {
-      const int dim = lane * EPL + e;
-      if (dim < D) w[2 + dim] = acc[g][e];
+    for (int g = 0; g < G; ++g) {
+      if (g >= group) break;
+      float* st = states + (warp * G + g) * (2 + D);
+      if (lane == 0) {
+        st[0] = m[g];
+        st[1] = l[g];
+      }
+#pragma unroll
+      for (int e = 0; e < EPL; ++e) {
+        const int dim = vec ? dim_of<true, EPL>(lane, e)
+                            : dim_of<false, EPL>(lane, e);
+        if (dim < D) st[2 + dim] = acc[g][e];
+      }
     }
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < group * D; i += kThreads) {
+  float* ex = reinterpret_cast<float*>(base + lay.exchange);
+  for (int i = threadIdx.x; i < group * D; i += dg::kThreads) {
     const int g = i / D, dim = i % D;
-    float mmax = kNegInf;
-    for (int w = 0; w < kWarps; ++w) mmax = fmaxf(mmax, ws[(w * G + g) * row]);
-    float lsum = 0.f, a = 0.f;
-    for (int w = 0; w < kWarps; ++w) {
-      const float* x = ws + (w * G + g) * row;
-      const float f = __expf(x[0] - mmax);
-      lsum += x[1] * f;
-      a += x[2 + dim] * f;
+    float mm = -INFINITY;
+#pragma unroll
+    for (int w = 0; w < dg::kWarps; ++w)
+      mm = fmaxf(mm, states[(w * G + g) * (2 + D)]);
+    float a = 0.f, ls = 0.f;
+    if (mm != -INFINITY) {
+#pragma unroll
+      for (int w = 0; w < dg::kWarps; ++w) {
+        const float* st = states + (w * G + g) * (2 + D);
+        const float f = ex2(st[0] - mm);  // 0 for a warp with no key
+        ls = fmaf(f, st[1], ls);
+        a = fmaf(f, st[2 + dim], a);
+      }
     }
-    const long long bh = (long long)b * Hq + hk * group + g;
-    pacc[(bh * n_splits + split) * D + dim] = a;
+    ex[2 * G + g * D + dim] = a;
     if (dim == 0) {
-      pm[bh * n_splits + split] = mmax;
-      pl[bh * n_splits + split] = lsum;
+      ex[g] = mm;
+      ex[G + g] = ls;
     }
   }
-}
 
-// One block per (batch row, q head): merge the splits' partials.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-decode_combine(const float* __restrict__ pm, const float* __restrict__ pl,
-               const float* __restrict__ pacc, T* __restrict__ out, int D,
-               int n_splits) {
-  const long long bh = blockIdx.x;
-  const float* m = pm + bh * n_splits;
-  const float* l = pl + bh * n_splits;
-  float mmax = kNegInf;
-  for (int s = 0; s < n_splits; ++s) mmax = fmaxf(mmax, m[s]);
-  float lsum = 0.f;
-  for (int s = 0; s < n_splits; ++s) lsum += l[s] * __expf(m[s] - mmax);
-  const float inv = lsum > 0.f ? 1.f / lsum : 0.f;
-  for (int dim = threadIdx.x; dim < D; dim += kThreads) {
-    float a = 0.f;
-    for (int s = 0; s < n_splits; ++s)
-      a += pacc[(bh * n_splits + s) * D + dim] * __expf(m[s] - mmax);
-    store(out + bh * D + dim, a * inv);
+  // Rank 0 merges the ranks' states in rank order, each thread reading
+  // every rank's m, l and accumulator of its elements at once (one round
+  // trip through distributed shared memory); the second sync keeps every
+  // block resident until it has read them.
+  cluster.sync();
+  if (rank == 0) {
+    T* og = out + (long long)(b * Hq + hk * group) * D;
+    for (int i = threadIdx.x; i < group * D; i += dg::kThreads) {
+      const int g = i / D, dim = i % D;
+      float rm[dg::kMaxCluster], rl[dg::kMaxCluster], ra[dg::kMaxCluster];
+#pragma unroll
+      for (int r = 0; r < dg::kMaxCluster; ++r) {
+        if (r < C) {
+          const float* x = cluster.map_shared_rank(ex, r);
+          rm[r] = x[g];
+          rl[r] = x[G + g];
+          ra[r] = x[2 * G + g * D + dim];
+        } else {
+          rm[r] = -INFINITY;
+          rl[r] = ra[r] = 0.f;
+        }
+      }
+      float mm = -INFINITY;
+#pragma unroll
+      for (int r = 0; r < dg::kMaxCluster; ++r) mm = fmaxf(mm, rm[r]);
+      float a = 0.f, ls = 0.f;
+      if (mm != -INFINITY) {  // else no rank saw a key: the row is 0
+#pragma unroll
+        for (int r = 0; r < dg::kMaxCluster; ++r) {
+          const float f = ex2(rm[r] - mm);  // 0 for an empty rank
+          ls = fmaf(f, rl[r], ls);
+          a = fmaf(f, ra[r], a);
+        }
+      }
+      store(og + g * D + dim, ls > 0.f ? a / ls : 0.f);
+    }
   }
+  cluster.sync();
 }
 
-int epl_for(int D) { return D <= 32 ? 1 : D <= 64 ? 2 : D <= 128 ? 4 : 8; }
+int epl_for(int D) { return dg::epl_for(D); }
 
 template <typename T, int EPL>
 void launch_rows(const void* q, const void* k, const void* v, void* o, int B,
@@ -1073,49 +1479,150 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B,
   return 0;
 }
 
+// How many clusters of each size c = 1 .. 16 blocks of this decode
+// instantiation fit on the current device at once, after the SM count:
+// facts[0] = SMs, facts[c] = clusters of c (0 where that size cannot
+// launch: above 8 is opt-in and may be refused).  Immutable per device,
+// so queried once and kept in statics; the launch attributes they need
+// are set with them.
+constexpr int kMaxDevices = 64;
+
 template <typename T, int EPL, int G>
-void launch_split(const void* q, const void* kc, const void* vc,
-                  const int* lengths, float* pm, float* pl, float* pacc,
-                  int B, int Hq, int Hkv, int S, int D, int window,
-                  float softcap, float scale, int n_splits, cudaStream_t s) {
-  const dim3 grid(n_splits, Hkv, B);
-  const size_t bytes = (size_t)kWarps * G * (2 + D) * sizeof(float);
-  decode_split<T, EPL, G><<<grid, kThreads, bytes, s>>>(
-      static_cast<const T*>(q), static_cast<const T*>(kc),
-      static_cast<const T*>(vc), lengths, pm, pl, pacc, Hq, Hkv, S, D, window,
-      softcap, scale, n_splits);
+int decode_facts(int* facts) {
+  static int cache[kMaxDevices][1 + dg::kMaxCluster];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  int* c = cache[dev];
+  if (__atomic_load_n(&c[0], __ATOMIC_ACQUIRE) == 0) {
+    auto kern = decode_cluster<T, EPL, G>;
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             dg::kSmem);
+    if (e != cudaSuccess) return (int)e;
+    const bool wide = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1) == cudaSuccess;
+    if (!wide) cudaGetLastError();
+    int f[1 + dg::kMaxCluster];
+    e = cudaDeviceGetAttribute(&f[0], cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return (int)e;
+    for (int size = 1; size <= dg::kMaxCluster; ++size) {
+      f[size] = 0;
+      if (size > 8 && !wide) continue;
+      cudaLaunchAttribute attr;
+      attr.id = cudaLaunchAttributeClusterDimension;
+      attr.val.clusterDim.x = size;
+      attr.val.clusterDim.y = 1;
+      attr.val.clusterDim.z = 1;
+      cudaLaunchConfig_t cfg = {};
+      cfg.gridDim = dim3(size, 1, 1);
+      cfg.blockDim = dim3(dg::kThreads, 1, 1);
+      cfg.dynamicSmemBytes = dg::kSmem;
+      cfg.attrs = &attr;
+      cfg.numAttrs = 1;
+      e = cudaOccupancyMaxActiveClusters(&f[size], kern, &cfg);
+      if (e != cudaSuccess) {
+        if (size <= 8) return (int)e;  // portable sizes must launch
+        cudaGetLastError();
+        f[size] = 0;
+      }
+    }
+    for (int i = 1; i <= dg::kMaxCluster; ++i) c[i] = f[i];
+    __atomic_store_n(&c[0], f[0], __ATOMIC_RELEASE);
+  }
+  for (int i = 0; i <= dg::kMaxCluster; ++i) facts[i] = c[i];
+  return 0;
 }
 
-template <typename T, int EPL>
-void launch_split_g(int gmax, const void* q, const void* kc, const void* vc,
-                    const int* lengths, float* pm, float* pl, float* pacc,
-                    int B, int Hq, int Hkv, int S, int D, int window,
-                    float softcap, float scale, int n_splits, cudaStream_t s) {
-  switch (gmax) {
-    case 1: launch_split<T, EPL, 1>(q, kc, vc, lengths, pm, pl, pacc, B, Hq, Hkv, S, D, window, softcap, scale, n_splits, s); break;
-    case 2: launch_split<T, EPL, 2>(q, kc, vc, lengths, pm, pl, pacc, B, Hq, Hkv, S, D, window, softcap, scale, n_splits, s); break;
-    case 4: launch_split<T, EPL, 4>(q, kc, vc, lengths, pm, pl, pacc, B, Hq, Hkv, S, D, window, softcap, scale, n_splits, s); break;
-    default: launch_split<T, EPL, 8>(q, kc, vc, lengths, pm, pl, pacc, B, Hq, Hkv, S, D, window, softcap, scale, n_splits, s); break;
+// The tile and the cluster size of one call: `want` > 0 asks for that
+// cluster size (1 .. 16, one the device can launch), 0 for the rule's
+// (decode_geometry::cluster_size).
+template <typename T, int EPL, int G>
+int decode_plan(int D, int S, int B, int Hkv, int want, int* cluster,
+                dg::Tile* tile) {
+  int facts[1 + dg::kMaxCluster];
+  const int e = decode_facts<T, EPL, G>(facts);
+  if (e != 0) return e;
+  *tile = dg::tile(D, (int)sizeof(T), G);
+  if (!dg::fits(*tile, D, G)) return (int)cudaErrorInvalidValue;
+  if (want <= 0) {
+    *cluster = dg::cluster_size(B * Hkv, S, facts[0], facts + 1);
+    return 0;
   }
+  if (want > dg::kMaxCluster || facts[want] < 1)
+    return (int)cudaErrorInvalidValue;
+  *cluster = want;
+  return 0;
+}
+
+template <typename T, int EPL, int G>
+int launch_decode(const void* q, const void* kc, const void* vc,
+                  const int* lengths, void* out, int B, int Hq, int Hkv,
+                  int S, int D, int window, float softcap, float scale,
+                  int want, cudaStream_t s) {
+  int C = 1;
+  dg::Tile t;
+  const int e = decode_plan<T, EPL, G>(D, S, B, Hkv, want, &C, &t);
+  if (e != 0) return e;
+  const int cap = softcap > 0.f;
+  const float k1 = cap ? 2.f * kLog2e * scale / softcap : kLog2e * scale;
+  const float c1 = kLog2e * softcap, c2 = 2.f * c1;
+  // whole 16-byte vectors where every row starts on a 16-byte boundary
+  const int vec = (D * (int)sizeof(T)) % 16 == 0 &&
+                  ((reinterpret_cast<uintptr_t>(kc) |
+                    reinterpret_cast<uintptr_t>(vc)) & 15) == 0;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = C;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(C, Hkv, B);
+  cfg.blockDim = dim3(dg::kThreads, 1, 1);
+  cfg.dynamicSmemBytes = dg::kSmem;
+  cfg.stream = s;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return (int)cudaLaunchKernelEx(
+      &cfg, decode_cluster<T, EPL, G>, static_cast<const T*>(q),
+      static_cast<const T*>(kc), static_cast<const T*>(vc), lengths,
+      static_cast<T*>(out), Hq, Hkv, S, D, window, cap, k1, c1, c2, vec);
 }
 
 template <typename T>
-void launch_decode(const void* q, const void* kc, const void* vc,
-                   const int* lengths, void* out, float* pm, float* pl,
-                   float* pacc, int B, int Hq, int Hkv, int S, int D,
-                   int window, float softcap, float scale, int n_splits,
-                   cudaStream_t s) {
-  const int group = Hq / Hkv;
-  const int gmax = group <= 1 ? 1 : group <= 2 ? 2 : group <= 4 ? 4 : 8;
-  switch (epl_for(D)) {
-    case 1: launch_split_g<T, 1>(gmax, q, kc, vc, lengths, pm, pl, pacc, B, Hq, Hkv, S, D, window, softcap, scale, n_splits, s); break;
-    case 2: launch_split_g<T, 2>(gmax, q, kc, vc, lengths, pm, pl, pacc, B, Hq, Hkv, S, D, window, softcap, scale, n_splits, s); break;
-    case 4: launch_split_g<T, 4>(gmax, q, kc, vc, lengths, pm, pl, pacc, B, Hq, Hkv, S, D, window, softcap, scale, n_splits, s); break;
-    default: launch_split_g<T, 8>(gmax, q, kc, vc, lengths, pm, pl, pacc, B, Hq, Hkv, S, D, window, softcap, scale, n_splits, s); break;
-  }
-  decode_combine<T><<<B * Hq, kThreads, 0, s>>>(pm, pl, pacc,
-                                                static_cast<T*>(out), D,
-                                                n_splits);
+struct TypeTag {
+  typedef T type;
+};
+template <int N>
+using IntTag = std::integral_constant<int, N>;
+
+// fn(TypeTag<T>, IntTag<EPL>, IntTag<G>) for the decode instantiation that
+// serves this dtype, head dim and GQA group.
+template <typename Fn>
+int with_decode(int dtype, int D, int group, Fn&& fn) {
+  const int g = group <= 1 ? 1 : group <= 2 ? 2 : group <= 4 ? 4 : 8;
+  auto by_g = [&](auto t, auto epl) -> int {
+    switch (g) {
+      case 1: return fn(t, epl, IntTag<1>{});
+      case 2: return fn(t, epl, IntTag<2>{});
+      case 4: return fn(t, epl, IntTag<4>{});
+      default: return fn(t, epl, IntTag<8>{});
+    }
+  };
+  auto by_epl = [&](auto t) -> int {
+    switch (epl_for(D)) {
+      case 1: return by_g(t, IntTag<1>{});
+      case 2: return by_g(t, IntTag<2>{});
+      case 4: return by_g(t, IntTag<4>{});
+      default: return by_g(t, IntTag<8>{});
+    }
+  };
+  return dtype == kDtypeBF16 ? by_epl(TypeTag<bf16>{})
+                             : by_epl(TypeTag<float>{});
+}
+
+bool decode_takes(int D, int group) {
+  return D >= 1 && D <= 256 && group >= 1 && group <= 8;
 }
 
 }  // namespace
@@ -1168,24 +1675,51 @@ extern "C" int flash_attention_fwd_tile(int D, int dtype, int* rows,
 }
 
 // q: (B, Hq, D); k_cache, v_cache: (B, Hkv, S, D); lengths: (B,) int32 on
-// the device; out: (B, Hq, D); pm, pl: (B, Hq, n_splits) and pacc:
-// (B, Hq, n_splits, D) float32 scratch.  Requires Hq % Hkv == 0,
-// Hq / Hkv <= 8, D <= 256 and n_splits >= 1 (checked by the wrapper).
+// the device; out: (B, Hq, D); all contiguous, float32 (dtype 0) or
+// bfloat16 (dtype 1), any element-aligned base.  window <= 0 and softcap
+// <= 0 mean none.  cluster: 0 for the library's cluster size, or a size
+// up to 16 that the device can launch.  Requires Hq % Hkv == 0,
+// Hq / Hkv <= 8 and D <= 256.  One launch; allocates nothing.
 extern "C" int flash_decode_launch(const void* q, const void* k_cache,
                                    const void* v_cache, const void* lengths,
-                                   void* out, void* pm, void* pl, void* pacc,
-                                   int B, int Hq, int Hkv, int S, int D,
-                                   int dtype, int window, float softcap,
-                                   float scale, int n_splits, void* stream) {
+                                   void* out, int B, int Hq, int Hkv, int S,
+                                   int D, int dtype, int window,
+                                   float softcap, float scale, int cluster,
+                                   void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B == 0 || Hq == 0 || D == 0) return (int)cudaGetLastError();
+  if (Hkv < 1 || Hq % Hkv != 0 || !decode_takes(D, Hq / Hkv))
+    return (int)cudaErrorInvalidValue;
   const int* len = static_cast<const int*>(lengths);
-  float* m = static_cast<float*>(pm);
-  float* l = static_cast<float*>(pl);
-  float* a = static_cast<float*>(pacc);
-  if (dtype == kDtypeBF16)
-    launch_decode<bf16>(q, k_cache, v_cache, len, out, m, l, a, B, Hq, Hkv, S, D, window, softcap, scale, n_splits, s);
-  else
-    launch_decode<float>(q, k_cache, v_cache, len, out, m, l, a, B, Hq, Hkv, S, D, window, softcap, scale, n_splits, s);
-  return (int)cudaGetLastError();
+  const int err = with_decode(dtype, D, Hq / Hkv, [&](auto t, auto epl,
+                                                      auto g) {
+    typedef typename decltype(t)::type T;
+    return launch_decode<T, decltype(epl)::value, decltype(g)::value>(
+        q, k_cache, v_cache, len, out, B, Hq, Hkv, S, D, window, softcap,
+        scale, cluster, s);
+  });
+  return err != 0 ? err : (int)cudaGetLastError();
+}
+
+// The decode geometry a call with these shapes gets on the current device:
+// the cluster size (blocks sharing one (batch row, kv head)), the keys of
+// a K/V tile and the ring's slots.  Returns 0, or the CUDA error of a
+// shape the kernel does not take or a device query that failed.
+extern "C" int flash_decode_geometry(int D, int dtype, int group, int S,
+                                     int B, int Hkv, int* cluster,
+                                     int* keys_per_tile, int* slots) {
+  if (!decode_takes(D, group)) return (int)cudaErrorInvalidValue;
+  return with_decode(dtype, D, group, [&](auto t, auto epl, auto g) {
+    typedef typename decltype(t)::type T;
+    int c = 1;
+    dg::Tile tile;
+    const int e = decode_plan<T, decltype(epl)::value, decltype(g)::value>(
+        D, S, B, Hkv, 0, &c, &tile);
+    if (e == 0) {
+      *cluster = c;
+      *keys_per_tile = tile.keys;
+      *slots = tile.slots;
+    }
+    return e;
+  });
 }

@@ -11,13 +11,15 @@ gives them:
   unsupported dtype or shape is an error, never a reason to compute the
   attention some other way.  The forward is ``fwd_wgmma`` (TMA loads,
   wgmma products) for bfloat16 at head dims 64, 128 and 256, ``fwd_rows``
-  otherwise (``forward_kernel``);
+  otherwise (``forward_kernel``).  Decode is ``decode_cluster``: one
+  launch of thread-block clusters that split each row's live cache range
+  and merge in distributed shared memory (``decode_geometry``);
 * CPU tensors run the plain PyTorch versions (``ref.py``):
   ``chunked_attention`` for the forward, ``decode_ref`` for decode.
 
 ``attention.launches`` and ``decode_attention.launches`` count kernel
-launches (one per call on the card; decode's combine pass is part of the
-same call), so a run can show that its main path went through them.
+launches (one per call on the card), so a run can show that its main path
+went through them.
 """
 
 from __future__ import annotations
@@ -37,8 +39,6 @@ MAX_HEAD_DIM = 256
 TMA_ALIGN = 16
 #: decode keeps the q vectors of one GQA group in registers, at most 8
 MAX_GROUP = 8
-#: the fewest live keys a decode split is given
-MIN_SPLIT_KEYS = 64
 
 
 def library() -> ctypes.CDLL:
@@ -46,7 +46,7 @@ def library() -> ctypes.CDLL:
     lib = load_library("flash_attention")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fwd, dec = lib.flash_attention_fwd_launch, lib.flash_decode_launch
-    tile = lib.flash_attention_fwd_tile
+    tile, geometry = lib.flash_attention_fwd_tile, lib.flash_decode_geometry
     if tile.argtypes is None:
         tile.argtypes = [i, i] + [ctypes.POINTER(i)] * 3
         tile.restype = ctypes.c_int
@@ -54,8 +54,11 @@ def library() -> ctypes.CDLL:
         fwd.argtypes = [p, p, p, p] + [i] * 9 + [f, f, p]
         fwd.restype = ctypes.c_int
     if dec.argtypes is None:
-        dec.argtypes = [p] * 8 + [i] * 7 + [f, f, i, p]
+        dec.argtypes = [p] * 5 + [i] * 7 + [f, f, i, p]
         dec.restype = ctypes.c_int
+    if geometry.argtypes is None:
+        geometry.argtypes = [i] * 6 + [ctypes.POINTER(i)] * 3
+        geometry.restype = ctypes.c_int
     return lib
 
 
@@ -197,44 +200,56 @@ def _check_decode(q, k_cache, v_cache, lengths) -> None:
     _check_dtypes(q, k_cache, v_cache)
 
 
-def n_splits_for(batch: int, kv_heads: int, s_max: int, sms: int) -> int:
-    """How many blocks share one (batch row, kv head)'s cache: enough for
-    two blocks per SM, but no split shorter than ``MIN_SPLIT_KEYS`` keys of
-    the longest possible cache."""
-    want = -(-2 * sms // max(batch * kv_heads, 1))
-    cap = max(1, -(-s_max // MIN_SPLIT_KEYS))
-    return max(1, min(want, cap))
-
-
-def _decode_cuda(q, k_cache, v_cache, lengths, window, softcap, scale):
-    b, hq, d = q.shape
-    hkv, s_max = k_cache.shape[1], k_cache.shape[2]
+def _check_decode_shape(q, k_cache) -> None:
+    d, group = q.shape[-1], q.shape[1] // k_cache.shape[1]
     if d > MAX_HEAD_DIM:
         raise ValueError(f"the CUDA decode takes head_dim <= "
                          f"{MAX_HEAD_DIM}, got {d}")
-    if hq // hkv > MAX_GROUP:
+    if group > MAX_GROUP:
         raise ValueError(f"the CUDA decode takes GQA groups of at most "
-                         f"{MAX_GROUP} q heads, got {hq // hkv}")
+                         f"{MAX_GROUP} q heads, got {group}")
+
+
+def decode_geometry(q: torch.Tensor,
+                    k_cache: torch.Tensor) -> tuple[int, int, int]:
+    """The CUDA decode's geometry for a call on these tensors, as the
+    built library reports it for their device: (cluster size — blocks that
+    share one (batch row, kv head)'s live range —, keys of a K/V tile,
+    slots of the ring)."""
+    _check_decode_shape(q, k_cache)
+    b, hq, d = q.shape
+    hkv, s_max = k_cache.shape[1], k_cache.shape[2]
+    cluster, keys, slots = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    with torch.cuda.device(q.device):
+        err = library().flash_decode_geometry(
+            d, _DTYPE_CODE[q.dtype], hq // hkv, s_max, b, hkv,
+            ctypes.pointer(cluster), ctypes.pointer(keys),
+            ctypes.pointer(slots))
+    if err != 0:
+        raise RuntimeError(f"flash decode geometry failed: CUDA error {err}")
+    return cluster.value, keys.value, slots.value
+
+
+def _decode_cuda(q, k_cache, v_cache, lengths, window, softcap, scale,
+                 cluster=0):
+    """One launch of the cluster kernel; ``cluster`` 0 takes the library's
+    cluster size, a size from 1 to 16 forces one.  Allocates only the
+    output (given contiguous caches, q and int32 lengths)."""
+    _check_decode_shape(q, k_cache)
+    b, hq, d = q.shape
+    hkv, s_max = k_cache.shape[1], k_cache.shape[2]
     lib = library()
     q = q.contiguous()
     k_cache, v_cache = k_cache.contiguous(), v_cache.contiguous()
     lengths = lengths.to(torch.int32).contiguous()
     with torch.cuda.device(q.device):
-        sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-        splits = n_splits_for(b, hkv, s_max, sms)
         out = torch.empty_like(q)
-        part_m = torch.empty((b, hq, splits), dtype=torch.float32,
-                             device=q.device)
-        part_l = torch.empty_like(part_m)
-        part_acc = torch.empty((b, hq, splits, d), dtype=torch.float32,
-                               device=q.device)
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.flash_decode_launch(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-            lengths.data_ptr(), out.data_ptr(), part_m.data_ptr(),
-            part_l.data_ptr(), part_acc.data_ptr(), b, hq, hkv, s_max, d,
+            lengths.data_ptr(), out.data_ptr(), b, hq, hkv, s_max, d,
             _DTYPE_CODE[q.dtype], _window(window), _softcap(softcap),
-            float(scale), splits, stream)
+            float(scale), int(cluster), stream)
     if err != 0:
         raise RuntimeError(f"flash decode launch failed: CUDA error {err}")
     decode_attention.launches += 1
@@ -269,5 +284,5 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
 
 decode_attention.launches = 0
 
-__all__ = ["attention", "decode_attention", "forward_kernel", "forward_tile",
-           "library", "n_splits_for"]
+__all__ = ["attention", "decode_attention", "decode_geometry",
+           "forward_kernel", "forward_tile", "library"]

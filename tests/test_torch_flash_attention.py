@@ -23,6 +23,10 @@ so atol 1e-4 + rtol 1e-2 and the same relative L2 bound.
 """
 
 import ctypes
+import math
+import pathlib
+import shutil
+import subprocess
 import sys
 
 import jax.numpy as jnp
@@ -315,24 +319,322 @@ def test_library_signatures_pass_pointers_whole(monkeypatch):
         flash_attention_fwd_launch = Fn()
         flash_attention_fwd_tile = Fn()
         flash_decode_launch = Fn()
+        flash_decode_geometry = Fn()
 
     monkeypatch.setattr(ops, "load_library", lambda name: Lib())
     lib = ops.library()
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fwd, dec = lib.flash_attention_fwd_launch, lib.flash_decode_launch
-    tile = lib.flash_attention_fwd_tile
+    tile, geometry = lib.flash_attention_fwd_tile, lib.flash_decode_geometry
     assert fwd.argtypes == [p] * 4 + [i] * 9 + [f, f, p]
-    assert dec.argtypes == [p] * 8 + [i] * 7 + [f, f, i, p]
+    # q, k_cache, v_cache, lengths, out; B, Hq, Hkv, S, D, dtype, window;
+    # softcap, scale; cluster; stream — no scratch, no split count
+    assert dec.argtypes == [p] * 5 + [i] * 7 + [f, f, i, p]
     assert tile.argtypes == [i, i] + [ctypes.POINTER(i)] * 3
+    # D, dtype, group, S, B, Hkv; cluster, keys per tile, slots
+    assert geometry.argtypes == [i] * 6 + [ctypes.POINTER(i)] * 3
     assert fwd.restype is ctypes.c_int and dec.restype is ctypes.c_int
-    assert tile.restype is ctypes.c_int
+    assert tile.restype is ctypes.c_int and geometry.restype is ctypes.c_int
+
+
+# The decode kernel's geometry (csrc/decode_geometry.h) is plain C++: the
+# host's compiler builds it alone here, so the cluster-size rule and the
+# ring are held on shapes the card never sees, from the one source the
+# library reads.
+GEOMETRY_SHIM = """
+#include "decode_geometry.h"
+namespace dg = decode_geometry;
+extern "C" int cluster_size(int bh, int s_max, int sms, const int* active) {
+  return dg::cluster_size(bh, s_max, sms, active);
+}
+extern "C" void tile(int d, int esize, int g, int* out) {
+  const dg::Tile t = dg::tile(d, esize, g);
+  const dg::Layout l = dg::layout(t, d, g);
+  const int v[] = {t.keys, t.slots, t.slot_bytes, dg::fits(t, d, g),
+                   l.exchange, l.q, l.scratch, l.barriers, l.end,
+                   dg::step_keys(g, dg::epl_for(d)), dg::kWarps, dg::kGroups,
+                   dg::kGroupWarps, dg::kSmem, dg::kMinSplitKeys,
+                   dg::kMaxCluster, dg::kRuleMaxCluster};
+  for (int i = 0; i < 17; ++i) out[i] = v[i];
+}
+"""
+TILE_FIELDS = ("keys", "slots", "slot_bytes", "fits", "exchange", "q",
+               "scratch", "barriers", "end", "step_keys", "warps", "groups",
+               "group_warps", "smem", "min_split_keys", "max_cluster",
+               "rule_max_cluster")
+
+
+@pytest.fixture(scope="module")
+def geometry(tmp_path_factory):
+    """``decode_geometry.h`` built by the host's C++ compiler into a small
+    library: ``cluster_size(bh, s_max, sms, active)`` and ``tile(d,
+    esize, group)`` (a dict of the tile, the layout and the constants)."""
+    compiler = shutil.which("g++") or shutil.which("c++")
+    assert compiler, "a host C++ compiler builds decode_geometry.h"
+    out = tmp_path_factory.mktemp("decode_geometry")
+    (out / "shim.cpp").write_text(GEOMETRY_SHIM)
+    csrc = pathlib.Path(ops.__file__).parent / "csrc"
+    subprocess.run([compiler, "-std=c++17", "-shared", "-fPIC", "-I",
+                    str(csrc), "-o", str(out / "libshim.so"),
+                    str(out / "shim.cpp")], check=True)
+    lib = ctypes.CDLL(str(out / "libshim.so"))
+    lib.cluster_size.argtypes = [ctypes.c_int] * 3 + [
+        ctypes.POINTER(ctypes.c_int)]
+    lib.cluster_size.restype = ctypes.c_int
+
+    def cluster_size(bh, s_max, sms, active):
+        return lib.cluster_size(bh, s_max, sms,
+                                (ctypes.c_int * len(active))(*active))
+
+    def tile(d, esize, group):
+        buf = (ctypes.c_int * len(TILE_FIELDS))()
+        lib.tile(d, esize, 1 << max(0, group - 1).bit_length(), buf)
+        return dict(zip(TILE_FIELDS, buf))
+
+    return cluster_size, tile
+
+
+# a stand-in H100: 132 SMs, one decode block an SM, so 132 // c clusters
+# of c blocks resident at once (a real card may hold fewer of the larger
+# ones: a cluster stays within one GPC)
+H100_SMS = 132
+H100_ACTIVE = tuple(132 // c for c in range(1, 17))
 
 
 @pytest.mark.parametrize("b,hkv,smax,want", [
-    (1, 8, 8320, 33), (4, 8, 8320, 9), (8, 8, 128, 2), (1, 1, 64, 1),
+    (1, 8, 8320, 8), (4, 8, 8320, 4), (8, 8, 128, 2), (1, 1, 64, 1),
     (64, 8, 8320, 1)])
-def test_decode_splits_fill_the_card_without_short_splits(b, hkv, smax, want):
-    assert ops.n_splits_for(b, hkv, smax, sms=132) == want
+def test_decode_cluster_fills_the_card_without_short_splits(geometry, b, hkv,
+                                                           smax, want):
+    """The largest cluster size up to the rule's cap that keeps every
+    block resident, one an SM (B Hkv C <= SMs), with no split under the
+    minimum of S_max's keys; 1 where B Hkv already fills the card."""
+    cluster_size, tile = geometry
+    t = tile(64, 2, 1)
+    c = cluster_size(b * hkv, smax, H100_SMS, H100_ACTIVE)
+    assert c == want
+    assert c == 1 or (b * hkv * c <= H100_SMS and c <= t["rule_max_cluster"]
+                      and c * t["min_split_keys"] <= smax)
+
+
+def test_decode_cluster_keeps_every_cluster_resident(geometry):
+    """A cluster size the card cannot hold B Hkv of at once, or cannot
+    launch at all (16 is non-portable), is not taken; nor is one past the
+    largest."""
+    cluster_size, tile = geometry
+    active = list(H100_ACTIVE)
+    active[7] = 7                       # 7 clusters of 8 at once: not 8
+    assert cluster_size(8, 8320, 132, active) == 7
+    active[6:8] = [0, 0]                # 7 and 8 refused
+    assert cluster_size(8, 8320, 132, active) == 6
+    assert cluster_size(3, 8320, 132, active) == 6
+    assert cluster_size(8, 8320, 132, [132] + [0] * 15) == 1
+    t = tile(64, 2, 1)
+    assert t["rule_max_cluster"] <= t["max_cluster"]
+    assert cluster_size(1, 1 << 20, 10 ** 4, (10 ** 4,) * 16) == \
+        t["rule_max_cluster"]
+
+
+@pytest.mark.parametrize("esize", [2, 4])
+@pytest.mark.parametrize("group", [1, 2, 7, 8])
+def test_decode_tile_fits_and_gives_every_warp_whole_steps(geometry, esize,
+                                                           group):
+    """At every head dim up to 256: the ring, the block's exchanged state,
+    q, the warps' score scratch and the barriers fit the shared memory a
+    launch asks for; the slots are a whole number for each warp group (a
+    slot always serves one group, so a parity wait on its barriers cannot
+    pass a phase early), two or more for each where a tile is 16 KB or
+    less; a tile is whole steps for every warp of a group; a slot holds a
+    tile's rows plus the 16-byte envelope on both sides, on a 16-byte
+    boundary; the warps' states fit over the ring."""
+    _, tile = geometry
+    for d in range(1, 257):
+        t = tile(d, esize, group)
+        g = 1 << max(0, group - 1).bit_length()
+        assert t["fits"] and t["slots"] >= t["groups"]
+        assert t["slots"] % t["groups"] == 0
+        if t["keys"] * d * esize <= 16384:
+            assert t["slots"] >= 2 * t["groups"]
+        assert t["end"] + 128 <= t["smem"] <= 232448   # 227 KB a block
+        assert t["warps"] == t["groups"] * t["group_warps"]
+        assert t["keys"] % (t["group_warps"] * t["step_keys"]) == 0
+        assert t["step_keys"] * g <= 32                # one warp reduction
+        assert t["slot_bytes"] % 16 == 0
+        assert t["slot_bytes"] >= t["keys"] * d * esize + 30
+        assert t["exchange"] >= max(2 * t["slots"] * t["slot_bytes"],
+                                    t["warps"] * g * (2 + d) * 4)
+        assert t["scratch"] >= t["q"] + g * d * 4
+        assert t["barriers"] >= t["scratch"] + t["warps"] * g * t[
+            "step_keys"] * 4
+
+
+LOG2E = 1.4426950408889634
+
+
+def emulate_decode(q, k_cache, v_cache, lengths, *, window=None,
+                   softcap=None, scale=None, cluster, keys, slots, groups,
+                   group_warps, step, faults=()):
+    """The CUDA decode's decomposition in float64 on the CPU, as
+    ``decode_cluster`` computes it: rank r of ``cluster`` takes
+    [lo + r per, lo + (r + 1) per) of the row's live range [lo, hi), per
+    = ceil((hi - lo) / cluster), in tiles of ``keys`` that pass through a
+    ring of ``slots``; tile i goes to warp group i % ``groups``, and in it
+    the group's warp w of ``group_warps`` takes the steps of ``step`` keys
+    w, w + group_warps, ...; scores in log2 units (the
+    softcap as c1 - c2 / (1 + 2^(s k1))); each warp keeps (m, l, acc),
+    the warps merge into the rank's partial, and the ranks merge in rank
+    order (an empty rank has m = -inf, l = 0; a row with no live key is
+    0).  ``faults`` plants what a faulty kernel would compute: "drop_rank"
+    (rank 1's partial left out of the merge, rank 0's where there is one
+    rank), "stale_slot" (rank 0's tile ``slots`` read from the slot's
+    previous tile), "drop_tail" (every rank's ragged last tile skipped)."""
+    b, hq, d = q.shape
+    hkv, s_max = k_cache.shape[1], k_cache.shape[2]
+    group = hq // hkv
+    scale = scale if scale is not None else d ** -0.5
+    cap = softcap is not None and softcap > 0
+    k1 = 2 * LOG2E * scale / softcap if cap else LOG2E * scale
+    c1 = LOG2E * softcap if cap else 0.0
+    out = torch.zeros((b, hq, d), dtype=torch.float64)
+    dropped = (1 if cluster > 1 else 0) if "drop_rank" in faults else None
+    for bi in range(b):
+        length = int(lengths[bi])
+        lo = max(0, length - window) if window else 0
+        live = max(min(length, s_max) - lo, 0)
+        per = -(-live // cluster)
+        for h in range(hkv):
+            qg = q[bi, h * group:(h + 1) * group].double()
+            k, v = k_cache[bi, h].double(), v_cache[bi, h].double()
+            parts = []
+            for r in range(cluster):
+                r0 = lo + r * per
+                n = max(0, min(lo + live, r0 + per) - r0)
+                rows, owner = [], []
+                for i in range(-(-n // keys)):
+                    k0 = r0 + i * keys
+                    nk = min(keys, r0 + n - k0)
+                    if "drop_tail" in faults and nk < keys:
+                        continue
+                    src = k0
+                    if "stale_slot" in faults and r == 0 and i == slots:
+                        src = k0 - slots * keys   # the slot's previous tile
+                    rows.append(torch.arange(src, src + nk))
+                    owner.append(i % groups * group_warps
+                                 + torch.arange(nk) // step % group_warps)
+                m = torch.full((group,), -math.inf, dtype=torch.float64)
+                l = torch.zeros(group, dtype=torch.float64)
+                acc = torch.zeros((group, d), dtype=torch.float64)
+                if rows and r != dropped:
+                    idx, own = torch.cat(rows), torch.cat(owner)
+                    s = qg @ k[idx].T
+                    t = c1 - 2 * c1 / (1 + torch.exp2(s * k1)) if cap \
+                        else s * k1
+                    for w in range(groups * group_warps):  # warps' states
+                        tw = t[:, own == w]
+                        if tw.shape[1] == 0:
+                            continue
+                        mw = tw.max(dim=1).values
+                        pw = torch.exp2(tw - mw[:, None])
+                        mm = torch.maximum(m, mw)
+                        fo, fw = torch.exp2(m - mm), torch.exp2(mw - mm)
+                        l = l * fo + pw.sum(dim=1) * fw
+                        acc = acc * fo[:, None] + (pw @ v[idx][own == w]) \
+                            * fw[:, None]
+                        m = mm
+                parts.append((m, l, acc))
+            mm = torch.stack([p[0] for p in parts]).max(dim=0).values
+            if bool(torch.isinf(mm).all()):
+                continue                        # no live key: 0
+            num = sum(p[2] * torch.exp2(p[0] - mm)[:, None] for p in parts)
+            den = sum(p[1] * torch.exp2(p[0] - mm) for p in parts)
+            out[bi, h * group:(h + 1) * group] = num / den[:, None]
+    return out.to(q.dtype)
+
+
+EMULATED = [
+    # b, hq, hkv, smax, d, window, cap, dtype, lengths, cluster
+    (2, 8, 8, 256, 64, None, None, "float32", (1, 256), 16),  # length 1
+    (1, 2, 1, 128, 96, None, 50.0, "float32", (5,), 8),       # length < C
+    (2, 14, 2, 320, 128, 3, None, "bfloat16", (320, 200), 8),  # window < C
+    (1, 8, 1, 200, 160, None, 30.0, "float32", (199,), 4),    # group 8
+    (3, 4, 2, 384, 256, 100, 50.0, "bfloat16", (384, 1, 130), 2),
+    (2, 4, 4, 64, 64, None, None, "float32", (64, 33), 1),
+    (2, 16, 8, 300, 128, 64, 50.0, "float32", (300, 65), 16),  # empty ranks
+    (1, 14, 2, 512, 256, None, 50.0, "float32", (512,), 2),    # group 7
+]
+
+
+@pytest.mark.parametrize("b,hq,hkv,smax,d,window,cap,dtype,lens,cluster",
+                         EMULATED)
+def test_emulated_decode_matches_reference_and_pallas(
+        geometry, b, hq, hkv, smax, d, window, cap, dtype, lens, cluster):
+    """The kernel's decomposition, at the library's tile and ring for this
+    head dim and dtype, against ``decode_ref`` (both packages') and the
+    reference's ``flash_decode`` in interpret mode, at its seams: length 1
+    and S_max, lengths and windows shorter than the cluster (empty ranks),
+    ragged last tiles, groups 1, 2, 7 and 8, head dims 64-256."""
+    _, tile = geometry
+    rng = np.random.default_rng(smax + d + cluster)
+    (jq, tq), (jk, tk), (jv, tv) = (
+        _both(_normal(rng, shape), dtype)
+        for shape in ((b, hq, d), (b, hkv, smax, d), (b, hkv, smax, d)))
+    lengths = np.array(lens, np.int32)
+    kw = dict(window=window, softcap=cap)
+    t = tile(d, 2 if dtype == "bfloat16" else 4, hq // hkv)
+    got = emulate_decode(tq, tk, tv, torch.from_numpy(lengths),
+                         cluster=cluster, keys=t["keys"], slots=t["slots"],
+                         groups=t["groups"], group_warps=t["group_warps"],
+                         step=t["step_keys"], **kw)
+    tol = F32 if dtype == "float32" else BF16
+    np.testing.assert_allclose(
+        _np(got), _np(decode_ref(tq, tk, tv, torch.from_numpy(lengths),
+                                 **kw)), **tol)
+    np.testing.assert_allclose(
+        _np(got), _np(jax_decode_ref(jq, jk, jv, jnp.asarray(lengths),
+                                     **kw)), **tol)
+    np.testing.assert_allclose(
+        _np(got), _np(flash_decode(jq, jk, jv, jnp.asarray(lengths),
+                                   interpret=True, **kw)), **tol)
+
+
+@pytest.mark.parametrize("cluster,keys,slots", [(1, 32, 3), (3, 32, 3),
+                                                (4, 64, 3), (16, 32, 8)])
+def test_emulated_decode_is_the_same_function_at_any_geometry(cluster, keys,
+                                                              slots):
+    """Cluster size, tile and ring depth change the order of the sums and
+    nothing else (float64: to rounding)."""
+    rng = np.random.default_rng(cluster + keys)
+    q, k, v = (torch.from_numpy(_normal(rng, s))
+               for s in ((3, 8, 32), (3, 2, 700, 32), (3, 2, 700, 32)))
+    lengths = torch.tensor([700, 301, 2], dtype=torch.int32)
+    kw = dict(window=500, softcap=50.0)
+    want = emulate_decode(q.double(), k.double(), v.double(), lengths,
+                          cluster=1, keys=700, slots=2, groups=1,
+                          group_warps=1, step=1, **kw)
+    got = emulate_decode(q.double(), k.double(), v.double(), lengths,
+                         cluster=cluster, keys=keys, slots=slots, groups=2,
+                         group_warps=4, step=4, **kw)
+    torch.testing.assert_close(got, want, rtol=1e-12, atol=1e-12)
+    torch.testing.assert_close(
+        got.float(), decode_ref(q, k, v, lengths, **kw), **F32)
+
+
+@pytest.mark.parametrize("fault", ["drop_rank", "stale_slot", "drop_tail"])
+def test_emulated_faults_change_the_output(fault):
+    """Each fault ``chip_smoke.py`` plants on the card changes the output
+    of a decomposition where it can occur by more than the kernel's
+    tolerance there: a rank left out of the merge, a stale ring slot, a
+    ragged last tile dropped."""
+    rng = np.random.default_rng(9)
+    q, k, v = (torch.from_numpy(_normal(rng, s))
+               for s in ((1, 4, 64), (1, 2, 1000, 64), (1, 2, 1000, 64)))
+    lengths = torch.tensor([1000], dtype=torch.int32)
+    geo = dict(cluster=4, keys=64, slots=3, groups=2, group_warps=4, step=8)
+    want = emulate_decode(q, k, v, lengths, **geo)
+    got = emulate_decode(q, k, v, lengths, faults=(fault,), **geo)
+    assert float((got - want).abs().max()) > 1e-2
+    np.testing.assert_allclose(_np(want), _np(decode_ref(q, k, v, lengths)),
+                               **F32)
 
 
 @pytest.mark.parametrize("dtype,d,reported", [
@@ -392,9 +694,10 @@ ptxas info    : Used 255 registers, 360 bytes cmem[0]
 def test_ptxas_usage_reads_registers_and_spills_per_kernel():
     usage = _build.ptxas_usage(PTXAS_REPORT)
     wgmma = next(v for k, v in usage.items() if "fwd_wgmmaILi256E" in k)
-    assert wgmma == {"registers": 168, "spill_stores": 0, "spill_loads": 0}
-    assert usage["_Z8fwd_rowsPf"] == {"registers": 255, "spill_stores": 4,
-                                      "spill_loads": 12}
+    assert wgmma == {"registers": 168, "stack_frame": 0, "spill_stores": 0,
+                     "spill_loads": 0}
+    assert usage["_Z8fwd_rowsPf"] == {"registers": 255, "stack_frame": 8,
+                                      "spill_stores": 4, "spill_loads": 12}
     assert _build.ptxas_usage("") == {}
 
 
@@ -543,3 +846,116 @@ def test_cuda_decode_at_a_length_zero_row_is_zero(cuda_device, window):
     torch.cuda.synchronize()
     assert not got[0].any()
     torch.testing.assert_close(got[1], want[1], **F32)
+
+
+def _decode_inputs(device, b, hq, hkv, s_max, d, dtype, lens, shift=0,
+                   seed=0):
+    """q and caches from the numpy seed on ``device``; the caches' data
+    start ``shift`` bytes past a 16-byte boundary (views into larger
+    tensors)."""
+    rng = np.random.default_rng(seed)
+    dt = getattr(torch, dtype)
+    q = torch.from_numpy(_normal(rng, (b, hq, d))).to(device, dt)
+    n = b * hkv * s_max * d
+    caches = []
+    for _ in range(2):
+        flat = torch.from_numpy(_normal(rng, (n + 16,))).to(device, dt)
+        off = shift // flat.element_size()
+        caches.append(flat[off:off + n].view(b, hkv, s_max, d))
+    lengths = torch.tensor(lens, dtype=torch.int32, device=device)
+    return q, caches[0], caches[1], lengths
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [4096, None])
+def test_cuda_decode_on_gemmas_layer_shapes(cuda_device, window):
+    """Gemma 2 9B's decode at its first step after an 8,192-token prompt:
+    q (1, 16, 256), caches (1, 8, 8208, 256), length 8,193, softcap 50,
+    a windowed and a global layer."""
+    q, k, v, lens = _decode_inputs(cuda_device, 1, 16, 8, 8208, 256,
+                                   "bfloat16", [8193])
+    before = ops.decode_attention.launches
+    got = ops.decode_attention(q, k, v, lens, window=window, softcap=50.0)
+    assert ops.decode_attention.launches == before + 1
+    want = decode_ref(q, k, v, lens, window=window, softcap=50.0)
+    torch.cuda.synchronize()
+    _assert_kernel_close(got, want, "bfloat16", "decode")
+
+
+@pytest.mark.cuda
+def test_cuda_decode_repeats_bit_for_bit_across_shapes_and_clusters(
+        cuda_device):
+    """The kernel keeps nothing between calls: the same call gives the
+    same bits after calls of another shape (another cluster size from the
+    library's rule) and at a forced cluster size."""
+    a = _decode_inputs(cuda_device, 1, 16, 8, 8208, 256, "bfloat16",
+                       [8193])
+    b = _decode_inputs(cuda_device, 16, 16, 8, 1000, 256, "bfloat16",
+                       list(range(60, 1000, 60))[:16], seed=1)
+    assert ops.decode_geometry(a[0], a[1])[0] != \
+        ops.decode_geometry(b[0], b[1])[0]
+    kw = dict(window=None, softcap=50.0)
+    first = ops.decode_attention(*a, **kw)
+    ops.decode_attention(*b, **kw)
+    forced = ops._decode_cuda(*a, None, 50.0, 256 ** -0.5, cluster=2)
+    again = [ops.decode_attention(*a, **kw) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(first, x) for x in again)
+    _assert_kernel_close(forced, decode_ref(*a, **kw), "bfloat16", "decode")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8, 12, 16])
+def test_cuda_decode_at_each_cluster_size(cuda_device, cluster):
+    """Any cluster size the card launches gives the plain version's
+    result; one it cannot launch (16 is non-portable) raises."""
+    q, k, v, lens = _decode_inputs(cuda_device, 3, 32, 4, 3000, 128,
+                                   "bfloat16", [3000, 1, 1777])
+    try:
+        got = ops._decode_cuda(q, k, v, lens, 1000, 50.0, 128 ** -0.5,
+                               cluster=cluster)
+    except RuntimeError as err:
+        assert cluster == 16 and "CUDA error" in str(err)
+        return
+    want = decode_ref(q, k, v, lens, window=1000, softcap=50.0)
+    torch.cuda.synchronize()
+    _assert_kernel_close(got, want, "bfloat16", "decode")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,d,shift", [("bfloat16", 256, 2),
+                                           ("bfloat16", 128, 6),
+                                           ("float32", 64, 4),
+                                           ("float32", 33, 0)])
+def test_cuda_decode_takes_caches_off_16_byte_boundaries(cuda_device, dtype,
+                                                         d, shift):
+    """Caches whose data start off a 16-byte boundary, or whose rows are
+    not whole 16-byte vectors (D = 33 float32), go through the same bulk
+    copies (the 16-byte envelope around the rows) and scalar reads."""
+    q, k, v, lens = _decode_inputs(cuda_device, 4, 16, 8, 2000, d, dtype,
+                                   [2000, 1, 999, 1500], shift=shift)
+    assert k.data_ptr() % 16 == shift
+    got = ops.decode_attention(q, k, v, lens, window=700, softcap=50.0)
+    want = decode_ref(q, k, v, lens, window=700, softcap=50.0)
+    torch.cuda.synchronize()
+    _assert_kernel_close(got, want, dtype, "decode")
+
+
+@pytest.mark.cuda
+def test_cuda_decode_geometry_and_allocations(cuda_device):
+    """The library's geometry: clusters of more than one block where B Hkv
+    leaves the card idle, one block where it fills it; a call allocates
+    its output and nothing else."""
+    q, k, v, lens = _decode_inputs(cuda_device, 1, 16, 8, 8208, 256,
+                                   "bfloat16", [8193])
+    cluster, keys, slots = ops.decode_geometry(q, k)
+    assert cluster == 8 and keys >= 8 and slots >= 3
+    big = _decode_inputs(cuda_device, 64, 16, 8, 64, 256, "bfloat16",
+                         [64] * 64)
+    assert ops.decode_geometry(big[0], big[1])[0] == 1
+    ops.decode_attention(q, k, v, lens, softcap=50.0)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_stats()["allocation.all.allocated"]
+    ops.decode_attention(q, k, v, lens, softcap=50.0)
+    assert torch.cuda.memory_stats()["allocation.all.allocated"] - \
+        before == 1

@@ -91,7 +91,16 @@ def test_plain_matches_pallas_kernel_in_interpret_mode(b, length, d, n,
     js, ts = _both(_inputs(length + d, b, length, d, n), "float32")
     y_k, h_k = jax_pallas(*js, block_d=block_d, block_l=block_l,
                           interpret=True)
-    y, h = selective_scan_ref(*ts)
+    # One torch thread: in a fresh test process (this is the first torch
+    # call of the file), torch.exp's first parallel call has computed one
+    # of its thread chunks about 1e-4 off, while the same call repeated is
+    # exact; the comparison is of the arithmetic, not of torch's threads.
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        y, h = selective_scan_ref(*ts)
+    finally:
+        torch.set_num_threads(threads)
     assert y.dtype == torch.float32 and h.dtype == torch.float32
     assert tuple(h.shape) == (b, d, n)
     np.testing.assert_allclose(_np(y), _np(y_k), **F32)
