@@ -210,6 +210,38 @@ card, phase by phase; any mismatch raises and the script exits non-zero:
    runs decode steps, as in the reference); tokens/s and admission's
    share of the wall.
 
+15. The paper's batch job on the host: ``Coordinator.run_job`` with the
+   paper's §IV-C configuration (``PAPER_JOB``: 4 Mappers, 2 Reducers,
+   combiner and Finalizer, 50 MB buffers, 5 MB multipart, fan-in 100, 75%
+   spill threshold; the pools as the reference's Fig. 6 bench sets them)
+   on Fig. 6's largest input, 16 MiB of ``synth_corpus`` text over 5,000
+   words (one line: the Splitter extends every range to the next newline,
+   so one mapper reads it all, as in the reference), with the combiner on
+   and off.  The Finalizer's object must
+   equal a ``collections.Counter`` oracle, and the same tokens counted by
+   the array pipeline built with ``device="cuda"`` (one hash_combine
+   launch, counts set to 0 just before).  Prints each job's wall, the
+   per-role phase times (download, process, upload) and the spill bytes.
+16. The job service on the card: one ``JobServer`` with three tenants on
+   one shared ingest of phase 3's Linear Road log (1,000,000 reports,
+   65,536-record segments): ``lav`` (phase 3's program), per-segment
+   report counts a minute (``tumbling(60)``, ``count``) and the 100
+   fastest segments every 5 minutes (``tumbling(300)``, ``mean``,
+   ``top_k(100)``), each built with ``device="cuda"``.  When the log has
+   drained every job must be PARKED and the pool at 0 replicas; two more
+   minutes of reports (200,000, from seed + 16) are appended, which
+   cold-restores every job, and the service runs to completion.  Each log
+   segment must be read exactly once, fused_fold's launches (counts set to
+   0 just before) must equal the jobs' fold steps, no pair may be late,
+   every tenant's sinks must equal, byte for byte, its program run alone
+   on a private store over the whole log, built both with ``device="cuda"``
+   and with ``device="cpu"`` (every fold through the plain version), and
+   ``lav``'s must equal phase 3's numpy oracle over the whole log.  Prints aggregate and per-tenant
+   records/s, cold-restore latency (p50, max), the pool's compute seconds,
+   ``JobServer.stats()``, and the device work of the appended part
+   (torch.profiler, CUDA activity only) against its wall.  Both phases'
+   other times are host times.
+
 Before the last line it prints one JSON object ``{"kernels": [...]}``
 (per kernel: launches on its main path, error, kernel / plain / bound /
 library times at its main path's shape); the last line is
@@ -2276,6 +2308,336 @@ def phase_mamba_serving(torch, sc, params, cfg, device) -> None:
           flush=True)
 
 
+# -- phases 15-16: the paper's serverless system ------------------------------
+
+#: the paper's §IV-C job configuration, as the reference's benchmarks set it
+#: (``benchmarks/common.py``'s ``PAPER_JOB``, copied as data): combiner and
+#: Finalizer on, 50 MB input/output buffers, 5 MB multipart, merge fan-in
+#: 100, 75% spill threshold, 4 Mappers / 2 Reducers
+MB = 1024 * 1024
+PAPER_JOB = dict(n_mappers=4, n_reducers=2, run_combiner=True,
+                 run_finalizer=True, input_buffer_bytes=50 * MB,
+                 output_buffer_bytes=50 * MB, multipart_bytes=5 * MB,
+                 merge_fan_in=100, spill_threshold=0.75)
+#: the Coordinator's pools as the reference's Fig. 6 bench sets them: a
+#: Knative-like 0.08 s activation, 16 instances, no speculation
+PAPER_POOL = dict(cold_start=0.08, max_scale=16, scale_to_zero_grace=10.0)
+#: Fig. 6's largest input: bytes of synth_corpus text over 5,000 words
+PAPER_BYTES = 16 * MB
+PAPER_VOCAB = 5000
+#: phase 16: the service's log (phase 3's), then two more minutes appended
+SERVICE_APPEND_MINUTES = 2
+
+
+def paper_corpus(n_bytes: int, seed: int) -> str:
+    """Fig. 6's corpus: the seeded Zipf text over 5,000 words, cut at
+    ``n_bytes``.  The reference bench's ``corpus_of_bytes`` draws
+    ``n_bytes / 6`` words, which at 5,000 words is shorter than
+    ``n_bytes`` (10,489,110 B for 16 MiB); this draws enough words to
+    fill all of it."""
+    from repro_torch.data import synth_corpus
+    words = synth_corpus(max(64, n_bytes // 3), vocab_words=PAPER_VOCAB,
+                         seed=seed)
+    if len(words) < n_bytes:
+        raise AssertionError(f"{len(words)} B of text for {n_bytes}")
+    return words[:n_bytes]
+
+
+def phase_batch_job(torch, hc, device, n_bytes: int = PAPER_BYTES) -> int:
+    """Phase 15: the paper's host batch job (Coordinator → Splitter → 4
+    Mappers → 2 Reducers → Finalizer) on Fig. 6's largest input, combiner
+    on and off; the Finalizer's object against a Counter oracle and against
+    the same tokens counted by the array pipeline on the card.  Returns
+    hash_combine's launches in that count."""
+    from collections import Counter
+
+    from repro_torch.core import (AutoscalerConfig, Coordinator,
+                                  MemoryStore, MetadataStore,
+                                  make_wordcount_job, read_final_output)
+    from repro_torch.core.mapreduce import wordcount_map_factory
+    from repro_torch.pipeline import Pipeline
+
+    t0 = time.perf_counter()
+    corpus = paper_corpus(n_bytes, SEED)
+    words = corpus.split()
+    oracle = dict(Counter(words))
+    print(f"batch-job: {len(corpus.encode())} B of text, {len(words)} "
+          f"words, {len(oracle)} distinct, made in "
+          f"{time.perf_counter() - t0:.2f} s (host)", flush=True)
+    spill = {}
+    finals = {}
+    for combine in (True, False):
+        store, meta = MemoryStore(), MetadataStore()
+        store.put("input/corpus.txt", corpus.encode())
+        coord = Coordinator(store, meta,
+                            autoscaler=AutoscalerConfig(**PAPER_POOL),
+                            speculative_execution=False)
+        cfg = make_wordcount_job(job_id=f"paper-combiner-"
+                                 f"{'on' if combine else 'off'}",
+                                 **{**PAPER_JOB, "run_combiner": combine})
+        t0 = time.perf_counter()
+        report = coord.run_job(cfg)
+        wall = time.perf_counter() - t0
+        if report.state.value != "DONE":
+            raise AssertionError(f"batch job {cfg.job_id} ended "
+                                 f"{report.state.value}: {report.error}")
+        got = read_final_output(cfg, store)
+        if got != oracle:
+            bad = sorted(k for k in set(got) | set(oracle)
+                         if got.get(k) != oracle.get(k))[:4]
+            raise AssertionError(f"the Finalizer's counts differ from the "
+                                 f"Counter oracle at {bad}")
+        finals[combine] = got
+        mappers = [t.times for t in report.task_results
+                   if t.role == "mapper"]
+        spill[combine] = sum(t.bytes_out for t in mappers)
+        phases = "; ".join(
+            f"{role} download {v['downloading']:.4f} process "
+            f"{v['processing']:.4f} upload {v['uploading']:.4f} s"
+            for role, v in report.phase_times().items())
+        print(f"batch-job combiner {'on' if combine else 'off'} (host): "
+              f"wall {wall:.3f} s ({report.wall_time:.3f} s in run_job, the "
+              f"pools' 0.08 s activations included); "
+              f"mapper bytes in {[t.bytes_in for t in mappers]}; "
+              f"{sum(t.spills for t in mappers)} spills, {spill[combine]} "
+              f"spill bytes, {sum(t.records_out for t in mappers)} spilled "
+              f"records; per-task means: {phases}; Finalizer object == "
+              f"Counter oracle ({len(got)} words)", flush=True)
+    if not spill[True] < spill[False]:
+        raise AssertionError("the combiner did not reduce spill bytes")
+    vocab = {w: i for i, w in enumerate(sorted(oracle))}
+    nb = 1 << max(1, (len(vocab) - 1).bit_length())
+    tok = np.fromiter((vocab[w] for w in words), np.int64, len(words))
+    n_workers = 8
+    pad = (-len(tok)) % n_workers
+    tok = np.concatenate([tok, np.full(pad, -1, np.int64)])
+    shards = np.stack([tok.reshape(n_workers, -1),
+                       np.ones((n_workers, len(tok) // n_workers),
+                               np.int64)], axis=-1)
+    shards_dev = torch.from_numpy(shards).to(device)
+    built = (Pipeline.from_source(shards=shards_dev)
+             .map(wordcount_map_factory(nb)).reduce("sum")
+             .build(num_buckets=nb, n_workers=n_workers, device=device))
+    hc.combine.launches = 0
+    counts, stats = built.run()
+    launches = hc.combine.launches
+    if launches != 1:
+        raise AssertionError(f"the card word count launched hash_combine "
+                             f"{launches} times; the design launches it once")
+    counts = counts.cpu().numpy()
+    card = {w: int(counts[i]) for w, i in vocab.items()}
+    if card != finals[True] or int(counts.sum()) != len(words):
+        raise AssertionError("the card word count differs from the "
+                             "Finalizer's object")
+    print(f"batch-job: the Finalizer's object == the array pipeline's count "
+          f"on the card ({len(words)} tokens into {nb} buckets, {launches} "
+          f"hash_combine launch); combiner on {spill[True]} / off "
+          f"{spill[False]} spill bytes ({spill[True] / spill[False]:.4f})",
+          flush=True)
+    return launches
+
+
+def _segment_counting_store(store_cls, prefix: str):
+    """A fresh ``store_cls`` that counts its GETs of keys under ``prefix``
+    (an event log's segments) in ``segment_gets``."""
+    from collections import Counter
+
+    class SegmentCountingStore(store_cls):
+        def __init__(self):
+            super().__init__()
+            self.segment_gets = Counter()
+
+        def get(self, key, *args, **kwargs):
+            if key.startswith(prefix):
+                self.segment_gets[key] += 1
+            return super().get(key, *args, **kwargs)
+
+    return SegmentCountingStore()
+
+
+def service_programs(lr, n_xways: int, device) -> dict:
+    """Phase 16's three tenants' programs over one Linear Road log:
+    ``lav`` (phase 3's job), per-segment report counts a minute (volume),
+    and the 100 fastest segments by mean speed every 5 minutes (top-k
+    emission on the device).  Windowed aggregates are count, sum and mean
+    in both packages, so no tenant folds a min or a max (phase 2 checks
+    the kernel's extremum kinds)."""
+    from repro_torch.pipeline import Pipeline, Windowing
+    opts = lr.build_options(n_xways)
+
+    def tenant(window, agg, sink, job_id, top=None):
+        pipe = (Pipeline.from_source(batch_records=lr.BATCH_RECORDS)
+                .key_by().window(window).reduce(agg))
+        if top:
+            pipe = pipe.top_k(top)
+        return pipe.sink(sink).build(device=device, job_id=job_id, **opts)
+
+    return {
+        "traffic-lav": lr.lav_pipeline("linear-road/reports").build(
+            device=device, job_id="linear-road-lav", **opts),
+        "traffic-volume": tenant(Windowing.tumbling(60.0), "count",
+                                 "volume/", "segment-volume"),
+        "traffic-fastest": tenant(Windowing.tumbling(300.0), "mean",
+                                  "fastest/", "fastest-segments", top=100),
+    }
+
+
+def phase_job_service(torch, ops, lr, device, full=None) -> int:
+    """Phase 16: one JobServer on the card, three tenants on one shared
+    ingest of phase 3's Linear Road log; scale to zero after the log
+    drains, two more minutes appended, cold restores, and every tenant's
+    sinks against its program run alone over the whole log, built for the
+    card and for the CPU (the fold's plain version).  Returns the
+    fused_fold launches of the service's run."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import MemoryStore, MetadataStore
+    from repro_torch.pipeline import RunOptions
+    from repro_torch.service import JobServer, ParkPolicy
+    from repro_torch.streaming import StreamSource, write_event_log
+
+    full = full or lr.FULL
+    prefix = "linear-road/reports"
+    ts, seg, speed = lr.position_reports(SEED, **full)
+    ts2, seg2, speed2 = lr.position_reports(
+        SEED + 16, **dict(full, minutes=SERVICE_APPEND_MINUTES))
+    ts2 = ts2 + full["minutes"] * 60.0
+    first = lr.records(ts, seg, speed)
+    second = lr.records(ts2, seg2, speed2)
+    store = _segment_counting_store(MemoryStore, prefix + "/")
+    write_event_log(store, prefix, first, segment_records=lr.BATCH_RECORDS)
+    programs = service_programs(lr, full["n_xways"], device)
+    server = JobServer(store, MetadataStore(),
+                       park_policy=ParkPolicy(idle_seconds=0.0))
+    for tenant, program in programs.items():
+        server.add_tenant(tenant)
+        server.submit(tenant, program, source_prefix=prefix)
+    ops.fold.launches = 0
+    t0 = time.perf_counter()
+    while server.step():
+        pass
+    wall1 = time.perf_counter() - t0
+    states = {jid: j.state for jid, j in server.jobs.items()}
+    replicas = server.pool.stats()["replicas"]
+    if set(states.values()) != {"PARKED"} or replicas != 0:
+        raise AssertionError(f"after the log drained: states {states}, "
+                             f"{replicas} pool replicas (want all PARKED, "
+                             f"0 replicas)")
+    n1 = {jid: j.report.records_in for jid, j in server.jobs.items()}
+    print(f"service: {len(first)} reports into {len(programs)} tenants in "
+          f"{wall1:.3f} s (host wall) = "
+          f"{sum(n1.values()) / wall1:.0f} records/s aggregate; every job "
+          f"PARKED, pool at {replicas} replicas", flush=True)
+    write_event_log(store, prefix, second, segment_records=lr.BATCH_RECORDS)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        final = server.run_until_complete()
+        torch.cuda.synchronize()
+        wall2 = time.perf_counter() - t0
+    launches = ops.fold.launches
+    events = [ev for ev in prof.key_averages()
+              if ev.device_type == DeviceType.CUDA]
+    device_us = sum(_device_us(ev) for ev in events)
+    fold_us = sum(_device_us(ev) for ev in events
+                  if any(k in ev.key for k in ("fold_rows",
+                                               "combine_extrema")))
+    jobs = server.jobs
+    folds = sum(j.report.folds for j in jobs.values())
+    if set(final.values()) != {"DONE"}:
+        raise AssertionError(f"service ended with {final}: "
+                             f"{[j.error for j in jobs.values()]}")
+    if launches != folds or launches < sum(j.report.batches
+                                           for j in jobs.values()):
+        raise AssertionError(f"fused_fold launched {launches} times for "
+                             f"{folds} fold steps")
+    reads = store.segment_gets
+    n_segments = len(store.list_objects(prefix + "/segment-"))
+    if len(reads) != n_segments or set(reads.values()) != {1}:
+        raise AssertionError(f"log segments read {dict(reads)}; want each "
+                             f"of {n_segments} exactly once")
+    late = {jid: j.report.late_dropped for jid, j in jobs.items()}
+    if any(late.values()):
+        raise AssertionError(f"late pairs dropped: {late}")
+    colds = sorted(t for j in jobs.values() for t in j.cold_start_latencies)
+    total = len(first) + len(second)
+    print(f"service: {len(second)} more reports appended; cold restores "
+          f"{len(colds)}, latency p50 "
+          f"{1e3 * colds[len(colds) // 2]:.3f} ms, max "
+          f"{1e3 * colds[-1]:.3f} ms (host); the rest in {wall2:.3f} s; "
+          f"{launches} fused_fold launches = {folds} fold steps; each of "
+          f"{n_segments} log segments read once", flush=True)
+    busy = (f"{device_us / 1e3:.3f} ms = {device_us / 1e4 / wall2:.3f}% "
+            f"busy, fused_fold {fold_us / 1e3:.3f} ms" if device_us > 0
+            else "not measured")
+    print(f"service: device work in the appended part (torch.profiler, "
+          f"CUDA only, {wall2:.3f} s of wall): {busy}", flush=True)
+    for jid, job in jobs.items():
+        rep = job.report
+        busy = sum(rep.batch_latencies)
+        print(f"service tenant {job.tenant.name} ({jid}): {rep.records_in} "
+              f"records, {rep.batches} batches, {rep.folds} folds, "
+              f"{rep.windows_emitted} windows; {rep.records_in / busy:.0f} "
+              f"records/s over its {busy:.3f} s of driver time; pool "
+              f"{job.meter.pool_seconds:.3f} s (host)", flush=True)
+    print(f"service: {total * len(jobs) / (wall1 + wall2):.0f} records/s "
+          f"aggregate over both parts (host wall {wall1 + wall2:.3f} s); "
+          f"pool compute {sum(j.meter.pool_seconds for j in jobs.values()):.3f}"
+          f" s; JobServer.stats() {json.dumps(server.stats())}", flush=True)
+    def alone(program):
+        private = MemoryStore()
+        write_event_log(private, prefix, first,
+                        segment_records=lr.BATCH_RECORDS)
+        write_event_log(private, prefix, second,
+                        segment_records=lr.BATCH_RECORDS)
+        t0 = time.perf_counter()
+        report = program.run(StreamSource(store=private, prefix=prefix,
+                                          batch_records=lr.BATCH_RECORDS),
+                             store=private, meta=MetadataStore(),
+                             options=RunOptions(overlap=True))
+        if report.error is not None:
+            raise AssertionError(f"{program.job_id} alone failed: "
+                                 f"{report.error}")
+        return program.collect_outputs(private), time.perf_counter() - t0
+
+    # each tenant's program built again for the CPU folds through the
+    # plain version, so the card's sinks are held against it, not only
+    # against the same card-built program run alone
+    plain = service_programs(lr, full["n_xways"], "cpu")
+    for tenant, program in programs.items():
+        card, card_s = alone(program)
+        want, plain_s = alone(plain[tenant])
+        ns = f"tenants/{tenant}/"
+        got = {k[len(ns):]: v for k, v in
+               {m.key: store.get(m.key) for out in program.output_prefixes()
+                for m in store.list_objects(ns + out)}.items()}
+        if not want or got != want or card != want:
+            raise AssertionError(
+                f"tenant {tenant}: service sinks == plain {got == want}, "
+                f"card alone == plain {card == want} ({len(got)} / "
+                f"{len(card)} / {len(want)} objects)")
+        print(f"service tenant {tenant}: {len(got)} sink objects "
+              f"byte-identical to the program run alone on the card "
+              f"({card_s:.3f} s) and built for the CPU, the fold's plain "
+              f"version ({plain_s:.3f} s), over all {total} reports (host)",
+              flush=True)
+    lav = programs["traffic-lav"]
+    oracle = lr.lav_oracle(np.concatenate([ts, ts2]),
+                           np.concatenate([seg, seg2]),
+                           np.concatenate([speed, speed2]))
+    ns = "tenants/traffic-lav/"
+    for start, means in oracle.items():
+        key = (f"{ns}lav/{lav.job_id}/window-{start:.3f}-"
+               f"{start + lr.WINDOW_SIZE:.3f}")
+        got = dict(json.loads(line) for line in store.get(key).splitlines())
+        if got != means:
+            raise AssertionError(f"{key}: LAV differs from phase 3's oracle")
+    print(f"service tenant traffic-lav: {len(oracle)} windows == phase 3's "
+          f"numpy oracle over the whole log", flush=True)
+    return launches
+
+
+
 def main(argv=None) -> int:
     global SEED
     parser = argparse.ArgumentParser(description="Build, check and drive "
@@ -2372,6 +2734,10 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     phase_mamba_serving(torch, sc, params, cfg, device)
     del params
+    torch.cuda.empty_cache()
+
+    phase_batch_job(torch, hc, device)
+    phase_job_service(torch, ops, lr, device)
 
     kernel = {"name": "fused_fold", "route": "cuda",
               "source": "src/repro_torch/kernels/fused_fold/csrc/"

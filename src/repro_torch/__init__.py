@@ -17,7 +17,12 @@ with the fused fold as a hand-written CUDA kernel
 pipelines with the ``hash_combine`` kernel, and LM serving
 (``models``, ``launch/serve.py``) for the dense attention family, with the
 ``flash_attention`` kernels, and for Mamba-1 (falcon-mamba-7b), with the
-``mamba_scan`` kernel.  Entry points take a
+``mamba_scan`` kernel.  Around them the paper's own system: the host
+batch job (``core``: Coordinator → Splitter → Mappers → Reducers →
+Finalizer over the object store) and the multi-tenant job service
+(``service.JobServer``, ``launch.serve.JobRPC`` / ``JobSocketServer``),
+whose tenants fold on the device their programs were built for.  Entry
+points take a
 ``device`` and default to ``"cuda"``; a build on a host without CUDA
 raises unless the caller asks for ``device="cpu"``, where each kernel's
 wrapper runs its plain PyTorch version.  What is not ported yet raises

@@ -33,6 +33,13 @@ BUILD_DIR = KERNELS_DIR.parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
+
+class KernelError(RuntimeError):
+    """A hand-written kernel that could not be built, loaded or launched.
+    Callers that contain failures per job (the job service) catch this;
+    nothing catches it to compute the result some other way."""
+
+
 def source_path(name: str) -> pathlib.Path:
     """``kernels/<name>/csrc/<name>.cu``."""
     return KERNELS_DIR / name / "csrc" / f"{name}.cu"
@@ -51,7 +58,7 @@ def find_nvcc() -> str:
     for c in cands:
         if c.is_file():
             return str(c)
-    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH); "
+    raise KernelError("nvcc not found (set CUDA_HOME or put nvcc on PATH); "
                        "the CUDA kernels are built from source at first use")
 
 
@@ -94,7 +101,7 @@ def build_all(names) -> dict[str, pathlib.Path]:
             out.with_suffix(".log").write_text(report + err)
             os.replace(tmp, out)
     if failed:
-        raise RuntimeError("\n".join(failed))
+        raise KernelError("\n".join(failed))
     return {name: _target(name) for name in names}
 
 
@@ -143,4 +150,8 @@ def build(name: str) -> pathlib.Path:
 def load_library(name: str) -> ctypes.CDLL:
     """Build (if needed) and load kernel ``name``'s shared library, once
     per process."""
-    return ctypes.CDLL(str(build(name)))
+    path = build(name)
+    try:
+        return ctypes.CDLL(str(path))
+    except OSError as exc:
+        raise KernelError(f"cannot load {path}: {exc}") from exc

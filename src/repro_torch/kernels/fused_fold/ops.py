@@ -22,7 +22,7 @@ import struct
 
 import torch
 
-from .._build import load_library
+from .._build import KernelError, load_library
 from .ref import (DEVICE_ROW, FOLD_KINDS, HOST_ROW, INT32_MIN,
                   fused_streaming_fold_ref)
 
@@ -97,7 +97,7 @@ def _fold_cuda(rows, carry, min_window, *, fanout, n_slots, num_buckets,
             int(hashed), int(host_wire), _KIND_CODE[kind], min_window,
             stream)
     if err != 0:
-        raise RuntimeError(f"fused_fold launch failed: CUDA error {err}")
+        raise KernelError(f"fused_fold launch failed: CUDA error {err}")
     fold.launches += 1
     return carry, stats
 

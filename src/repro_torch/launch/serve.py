@@ -9,8 +9,10 @@ default to the card; on a host without CUDA pass ``device="cpu"``::
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-9b \\
         --requests 16 --max-new 32 --device cpu
 
-The job-service RPC front end of the reference module (``JobRPC``,
-``JobSocketServer``) is not ported here (ROADMAP.md Queue A #10).
+The module's other half is the job service's RPC front end:
+``JobRPC`` dispatches JSON requests onto a ``service.JobServer``, and
+``JobSocketServer`` puts it behind a TCP socket for a
+``core.client.JobServiceClient(address=...)`` in another process.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import numpy as np
 import torch
 
 from .. import configs
+from ..core.rpc import FrameServer
 from ..engine.plan import resolve_device
 from ..models import decode_step, init_cache, init_params
 from ..models.attention import cache_write_pos
@@ -174,6 +177,104 @@ class BatchedServer:
                 r.done = True
                 self.slots[i] = None       # free the slot (scale down)
         return len(active)
+
+
+class JobRPC:
+    """Transport-less RPC dispatch onto the multi-tenant job server.
+
+    One ``handle({"method": ..., ...params})`` call per request, answers
+    ``{"ok": True, "result": ...}`` or ``{"ok": False, "error": ...}`` —
+    the wire shape an HTTP trigger would carry, minus the socket.  A
+    compiled ``BuiltPipeline`` never crosses this boundary: ``register``
+    binds a program under a name server-side, and ``submit`` requests
+    reference that name (the paper submits a JSON job config the same
+    way).  Status polls answer purely from the metadata records, so a
+    monitoring process needs no server handle at all.
+    """
+
+    METHODS = ("register", "submit", "pause", "resume", "cancel",
+               "status", "jobs", "stats", "drain")
+
+    def __init__(self, server) -> None:
+        self.server = server
+        self.programs: dict[str, object] = {}
+
+    def register(self, name: str, program) -> None:
+        """Server-side program registry: name → BuiltPipeline."""
+        self.programs[name] = program
+
+    def handle(self, request: dict) -> dict:
+        method = request.get("method")
+        params = {k: v for k, v in request.items() if k != "method"}
+        if method not in self.METHODS:
+            return {"ok": False,
+                    "error": f"unknown method: {method!r}"}
+        try:
+            return {"ok": True, "result": getattr(self, f"_{method}")(
+                **params)}
+        except Exception as exc:                    # noqa: BLE001 — RPC edge
+            return {"ok": False, "error": f"{type(exc).__name__}: {exc}"}
+
+    # -- verbs ---------------------------------------------------------------
+    def _register(self, name, program):
+        self.register(name, program)
+        return name
+
+    def _submit(self, tenant, program, source_prefix, resume=False,
+                partitions=None):
+        if program not in self.programs:
+            raise KeyError(f"no program registered as {program!r}")
+        return self.server.submit(tenant, self.programs[program],
+                                  source_prefix=source_prefix,
+                                  resume=resume, partitions=partitions)
+
+    def _pause(self, job_id):
+        self.server.pause(job_id)
+        return self.server.status(job_id)["state"]
+
+    def _resume(self, job_id):
+        self.server.resume(job_id)
+        return self.server.status(job_id)["state"]
+
+    def _cancel(self, job_id):
+        self.server.cancel(job_id)
+        return self.server.status(job_id)["state"]
+
+    def _status(self, job_id):
+        return self.server.status(job_id)
+
+    def _jobs(self):
+        return self.server.registry.jobs()
+
+    def _stats(self):
+        return self.server.stats()
+
+    def _drain(self):
+        return self.server.run_until_complete()
+
+
+class JobSocketServer(FrameServer):
+    """The job-service control plane behind a real TCP socket.
+
+    Wraps a :class:`JobRPC` in a :class:`~repro_torch.core.rpc.FrameServer`:
+    each client connection exchanges length-prefixed JSON frames, every
+    frame is one ``JobRPC.handle`` dispatch, and all dispatches are
+    serialized under the transport's lock (the job server is
+    single-threaded by design).  ``port=0`` binds an ephemeral port —
+    read ``address`` back and hand it to ``JobServiceClient(address=...)``
+    in another process.  Usable as a context manager::
+
+        rpc = JobRPC(server)
+        rpc.register("hourly-avg", program)
+        with JobSocketServer(rpc) as srv:
+            print("serving on", srv.address)
+            ...
+    """
+
+    def __init__(self, rpc: JobRPC, host: str = "127.0.0.1",
+                 port: int = 0) -> None:
+        super().__init__(rpc.handle, host=host, port=port)
+        self.rpc = rpc
 
 
 def main() -> None:

@@ -234,7 +234,8 @@ class BuiltPipeline:
     # -- static analysis -------------------------------------------------------
     def check(self, *, source_prefixes=()) -> list:
         """Run planlint over the lowered program: a list of ``Diagnostic``
-        records, empty when clean."""
+        records, empty when clean.  ``Pipeline.build`` warns on these;
+        ``JobServer.submit`` rejects error-level findings."""
         from ..analysis.planlint import check_plan
         return check_plan(self, source_prefixes=source_prefixes)
 
@@ -268,6 +269,29 @@ class BuiltPipeline:
         from .runtime import run_batch
         return run_batch(self, store, data=data, source=source,
                          options=options)
+
+
+def assert_no_prefix_collision(prefixes: "tuple[str, ...] | list[str]",
+                               claimed: dict[str, str]) -> None:
+    """Cross-job twin of the build-time distinctness check: reject a new
+    job whose normalized output prefixes collide with — equal, contain, or
+    fall under — a prefix another job already claimed on the *same* shared
+    ObjectStore.  ``claimed`` maps normalized prefix → owning job id.
+    Overlap (not just equality) is the collision condition because
+    ``collect_outputs`` and resume scans are prefix listings: a job whose
+    prefix nests inside another's would see — and count — its neighbor's
+    windows.
+    """
+    for pfx in prefixes:
+        p_norm = pfx.rstrip("/") + "/"
+        for other, owner in claimed.items():
+            if p_norm.startswith(other) or other.startswith(p_norm):
+                raise PipelineError(
+                    f"output prefix {p_norm!r} collides with {other!r} "
+                    f"already claimed by job {owner!r} on this store — "
+                    f"jobs sharing one ObjectStore need disjoint sink "
+                    f"prefixes (distinct sinks, job ids, or tenant "
+                    f"namespaces)")
 
 
 # ---------------------------------------------------------------------------

@@ -1018,3 +1018,46 @@ class StreamingCoordinator:
             report.wall_time = time.perf_counter() - t_start
         return report
 
+
+    # -- introspection ---------------------------------------------------------
+    def checkpointed_offset(self) -> int:
+        """Record offset of this job's last barrier checkpoint (0 when
+        none)."""
+        return saved_offset(self.meta, self.prog.job_id)
+
+    def pool_stats(self) -> dict[str, Any]:
+        """The fold pool's counters (replicas, invocations, scale events)."""
+        return self.pool.stats()
+
+    # Public seam for external drive loops (the job server's overlapped
+    # multi-tenant scheduler): the prepare-lane and fold/drain-lane halves
+    # of process_batch, so a driver can run many jobs' prepare lanes on
+    # threads while folding each job's batches in order on its own thread.
+    # Prepare is host work only; every CUDA call stays in process_prepared,
+    # on the driving thread's current stream.
+    def prepare_batch(self, batch: MicroBatch) -> _PreparedBatch:
+        """Host-prepare one micro-batch (pure, prefetch-lane safe) — the
+        first half of ``process_batch``, exposed for external drivers."""
+        return self._prepare_batch(batch)
+
+    def process_prepared(self, prep: _PreparedBatch,
+                         report: StreamReport) -> None:
+        """Fold/drain one prepared batch on the driver thread in batch
+        order — the second half of ``process_batch``, exposed for
+        external drivers."""
+        return self._process_prepared(prep, report)
+
+
+# Same seam: the bounded prepare-lane thread run_stream uses, exported so
+# external drivers multiplex one per job instead of reinventing the
+# ("batch" | "end" | "error") handoff protocol.
+Prefetcher = _Prefetcher
+
+
+def saved_offset(meta: MetadataStore, job_id: str) -> int:
+    """Record offset of ``job_id``'s last barrier checkpoint in ``meta``
+    (0 when none) — readable without constructing a coordinator.  The job
+    server reports a parked/re-attached job's position from this instead
+    of the pre-park live counters, which die with the coordinator."""
+    state = meta.get(_state_key(job_id))
+    return int(state["offset"]) if state else 0

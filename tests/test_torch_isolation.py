@@ -2,9 +2,10 @@
 
 * ``repro_torch`` (and ``chip_smoke.py``) import torch and numpy, never
   JAX and nothing of the ``repro`` package — checked in a fresh
-  interpreter that builds and runs a streaming and an array pipeline and
+  interpreter that builds and runs a streaming and an array pipeline,
   serves two requests each on a reduced Gemma 2 and a reduced Falcon
-  Mamba, and by a source scan of every subpackage.
+  Mamba, submits a job to the job service and runs a host batch job, and
+  by a source scan of every subpackage.
 * Entry points default to the card: on a host without CUDA a build that
   does not ask for ``device="cpu"`` raises.
 * The fold wrapper takes its plain version only for CPU tensors: any
@@ -69,6 +70,26 @@ for r in reqs:
 while any(server.slots) or server.queue:
     server.step()
 assert all(r.done and len(r.tokens) == 5 for r in reqs), reqs
+from repro_torch.core import (Coordinator, MetadataStore, make_wordcount_job,
+                              read_final_output)
+from repro_torch.data import synth_corpus
+from repro_torch.service import JobServer
+from repro_torch.streaming import write_event_log
+store = MemoryStore()
+write_event_log(store, "gps/", events, segment_records=64)
+server = JobServer(store, MetadataStore())
+server.add_tenant("alice")
+job = (Pipeline.from_source(batch_records=64).key_by()
+       .window(Windowing.tumbling(20.0)).reduce("sum")
+       .build(num_buckets=8, n_workers=4, device="cpu", job_id="iso-svc"))
+server.submit("alice", job, source_prefix="gps/")
+assert server.run_until_complete() == {"iso-svc": "DONE"}
+text = synth_corpus(2000, vocab_words=40, seed=1)
+store = MemoryStore()
+store.put("input/corpus.txt", text.encode())
+cfg = make_wordcount_job(job_id="iso-wc", n_mappers=2, n_reducers=2)
+assert Coordinator(store, MetadataStore()).run_job(cfg).state == "DONE"
+assert sum(read_final_output(cfg, store).values()) == 2000
 loaded = sorted(m for m in sys.modules
                 if m == "jax" or m.startswith(("jax.", "jaxlib"))
                 or m == "repro" or m.startswith("repro."))
@@ -100,7 +121,8 @@ def test_sources_import_no_jax_and_no_reference():
     assert len(files) > 20
     scanned = {p.relative_to(REPO / "src" / "repro_torch").parts[0]
                for p in files[:-1]}
-    assert {"configs", "kernels", "launch", "models"} <= scanned
+    assert {"configs", "core", "data", "kernels", "launch", "models",
+            "service", "streaming"} <= scanned
     for path in files:
         for name in _imports(path):
             root = name.split(".")[0]
