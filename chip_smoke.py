@@ -27,8 +27,13 @@ card, phase by phase; any mismatch raises and the script exits non-zero:
    N = 2**22 rows, fan-out 5, 8 slots × 2**20 buckets (a 64 MiB carry, 80
    MiB of rows — bigger than the 50 MB L2) across {device wire, host wire}
    × {sum, count, min, max} × {dense, hashed} plus ``channel_base=2`` in a
-   4-channel carry, with late pairs and negative window indices; then at
-   the main path's own shape (one 65,536-record Linear Road micro-batch).
+   4-channel carry, with late pairs and negative window indices; then the
+   join's geometry: a carry 4,099 buckets wider than the key space
+   (``carry_buckets > num_buckets``, a narrow join side) for sum and count
+   at channel bases 0 and 2, the rows past the key space untouched, and
+   one 4-channel carry folded at base 0 and then at base 2, the second
+   fold leaving channels 0-1 as the first left them; then at the main
+   path's own shape (one 65,536-record Linear Road micro-batch).
    Times are CUDA-event medians of 20 launches after warm-up.
 3. Main path: ``linear-road-lav`` (see
    ``src/repro_torch/workloads/linear_road.py``: 50 expressways, 10,000
@@ -241,6 +246,35 @@ card, phase by phase; any mismatch raises and the script exits non-zero:
    ``JobServer.stats()``, and the device work of the appended part
    (torch.profiler, CUDA activity only) against its wall.  Both phases'
    other times are host times.
+
+17. A stage DAG on the card: ``congestion_chain`` (see
+   ``src/repro_torch/workloads/linear_road.py``) over phase 3's 1,000,000
+   reports — reports per segment per minute (``tumbling(60)``, ``count``,
+   10,000 segment keys) teed into a device edge (``sliding(300, 60)``
+   ``mean`` of the per-minute counts, ``top_k(100)``) and a host edge
+   (``key_by`` the expressway, ``tumbling(300)`` ``sum``, a 64-bucket
+   stage).  Both sinks must equal, byte for byte, the program built with
+   ``device="cpu"`` (every fold through the plain version) and the numpy
+   oracles (the top-k ties broken toward the segment the log showed
+   first, as ``top_k_buckets`` breaks them); fused_fold's launches
+   (counts set to 0 just before) must equal the fold steps of all three
+   stages.  A second card run under one torch.profiler session puts each
+   device-edge handoff between two synchronizes in its own
+   ``record_function`` range and fails on any device-to-host copy (a
+   ``Memcpy DtoH`` record) in those windows, on any host read of a tensor
+   there, or when the windows hold no device record at all.
+   Prints records/s, the folds per stage, the device edge's host time
+   (first run) and device time (second run).
+18. A windowed join on the card: ``toll_inputs_join`` — per segment and
+   minute, the mean speed from one log ⋈ the report count from another
+   (phase 3's reports written under two prefixes; 2,000,000 records
+   through one ``JoinSource``).  Both sides fold into one (8 × 10,000, 4)
+   carry at channel bases 0 and 2 (each side's first three folds are
+   checked to leave the other pair untouched); the sinks must equal the
+   ``device="cpu"`` build and the numpy oracle; launches must equal the
+   fold steps.  Prints records/s and the (segment, minute) pairs under 40
+   mph with more than 50 reports.  Both phases' times are host times
+   unless said otherwise.
 
 Before the last line it prints one JSON object ``{"kernels": [...]}``
 (per kernel: launches on its main path, error, kernel / plain / bound /
@@ -552,6 +586,63 @@ def phase_kernel(torch, ops, ref, device) -> float:
               f"bound {bound:.4f} ms ({by}; {_cells_hit(flat)} "
               f"cells hit by {flat.numel()} live pairs), scatter only "
               f"{lib_ms:.4f} ms")
+    return max(worst, _join_cases(torch, ops, ref, device, rng))
+
+
+def _join_cases(torch, ops, ref, device, rng) -> float:
+    """Phase 2, the join's and the handoff's geometry at the large shape:
+    a carry wider than the key space (``carry_buckets > num_buckets``, a
+    narrow join side) for sum and count at channel bases 0 and 2, rows
+    past the side's keys untouched; then one 4-channel carry folded at
+    base 0 and again at base 2 (a join's two sides), the second fold
+    leaving channels 0-1 as the first left them.  Bit-identical to the
+    plain version.  Returns the largest absolute error."""
+    wide = BIG_BUCKETS + 4099
+    worst = 0.0
+
+    def kw(kind, base):
+        return dict(fanout=FANOUT, n_slots=N_SLOTS, num_buckets=BIG_BUCKETS,
+                    carry_buckets=wide, channel_base=base, hashed=False,
+                    host_wire=False, kind=kind)
+
+    carry0 = torch.from_numpy(_carry(rng, N_SLOTS * wide, 4,
+                                     "sum")).to(device)
+    rows = [torch.from_numpy(_wire_rows(rng, BIG_N, host_wire=False,
+                                        keymax=BIG_BUCKETS)).to(device)
+            for _ in range(2)]
+    for kind in ("sum", "count"):
+        for base in (0, 2):
+            want_c, want_s = ref(rows[0], carry0, 2, **kw(kind, base))
+            got_c, got_s = ops.fold(rows[0], carry0.clone(), 2,
+                                    **kw(kind, base))
+            torch.cuda.synchronize()
+            err = float((got_c - want_c).abs().max())
+            worst = max(worst, err)
+            past = got_c.view(N_SLOTS, wide, 4)[:, BIG_BUCKETS:]
+            if not (torch.equal(got_c, want_c) and torch.equal(got_s, want_s)
+                    and torch.equal(past, carry0.view(N_SLOTS, wide, 4)
+                                    [:, BIG_BUCKETS:])):
+                raise AssertionError(f"fused_fold != plain version with "
+                                     f"carry_buckets={wide} > num_buckets="
+                                     f"{BIG_BUCKETS}, {kind} base={base}")
+            print(f"kernel-check device-wire {kind} carry_buckets={wide} > "
+                  f"num_buckets={BIG_BUCKETS} base={base}/C=4: "
+                  f"bit-identical, stats {got_s.tolist()}, rows past the "
+                  f"key space untouched")
+    want, _ = ref(rows[0], carry0, 2, **kw("sum", 0))
+    want, want_s = ref(rows[1], want, 2, **kw("count", 2))
+    got, _ = ops.fold(rows[0], carry0.clone(), 2, **kw("sum", 0))
+    left = got[:, :2].clone()
+    got, got_s = ops.fold(rows[1], got, 2, **kw("count", 2))
+    torch.cuda.synchronize()
+    worst = max(worst, float((got - want).abs().max()))
+    if not (torch.equal(got, want) and torch.equal(got_s, want_s)
+            and torch.equal(got[:, :2], left)):
+        raise AssertionError("a 4-channel carry folded at base 0 then base 2 "
+                             "differs from the plain version")
+    print("kernel-check join sides: one 4-channel carry folded at base 0 "
+          "(sum) then base 2 (count): bit-identical, channels 0-1 untouched "
+          "by the second fold")
     return worst
 
 
@@ -2637,6 +2728,300 @@ def phase_job_service(torch, ops, lr, device, full=None) -> int:
     return launches
 
 
+def _lr_log(lr, records, prefixes):
+    """A fresh in-memory store holding ``records`` as an event log under
+    each of ``prefixes``, in Linear Road micro-batch segments."""
+    from repro_torch.core import MemoryStore
+    from repro_torch.streaming import write_event_log
+    store = MemoryStore()
+    for prefix in prefixes:
+        write_event_log(store, prefix, records,
+                        segment_records=lr.BATCH_RECORDS)
+    return store
+
+
+def _drive(program, store):
+    """One streaming run of ``program`` over its bound logs in ``store``:
+    ``(report, sinks, host wall)``."""
+    from repro_torch.core import MetadataStore
+    from repro_torch.pipeline import RunOptions
+    t0 = time.perf_counter()
+    report = program.run(store=store, meta=MetadataStore(),
+                         options=RunOptions(overlap=True))
+    wall = time.perf_counter() - t0
+    if report.error is not None:
+        raise AssertionError(f"{program.job_id} failed: {report.error}")
+    return report, program.collect_outputs(store), wall
+
+
+EDGE_RANGE = "device-edge handoff"
+
+
+def phase_congestion_chain(torch, ops, lr, device, full=None) -> int:
+    """Phase 17: ``congestion_chain`` (a tee'd stage DAG) over phase 3's
+    reports on the card.  The sinks of both branches must equal the same
+    program built with ``device="cpu"`` (every fold through the plain
+    version) byte for byte, and the numpy oracles; fused_fold's launches
+    (counts set to 0 just before) must equal the fold steps of all
+    stages; the device edge's handoffs must copy nothing to the host.
+    Returns the launches of the card run."""
+    from collections import Counter
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.streaming import StreamingCoordinator
+
+    full = full or lr.FULL
+    prefix = "linear-road/reports"
+    ts, seg, speed = lr.position_reports(SEED, **full)
+    records = lr.records(ts, seg, speed)
+    opts = lr.build_options(full["n_xways"])
+
+    def program(dev):
+        return lr.congestion_chain(prefix).build(device=dev,
+                                                 job_id="congestion", **opts)
+
+    card = program("cuda")
+    print("congestion_chain:\n" + card.explain(), flush=True)
+    # one card run, in one torch.profiler session: each device-edge
+    # handoff runs between two synchronizes inside its own record_function
+    # range, so the device work it queued (and any copy to the host it
+    # made) lies inside that range's time window, and Python reads of a
+    # tensor are counted there too; its host time is that of the call
+    # alone, the synchronizes excluded
+    folds, reads = Counter(), Counter()
+    edge_ms = []
+    names = ("cpu", "tolist", "item", "numpy")
+    saved = {n: getattr(torch.Tensor, n) for n in names}
+    orig_fold = StreamingCoordinator._fold
+    orig_edge = StreamingCoordinator._handoff_device
+
+    def counted_fold(self, si, *args, **kwargs):
+        folds[si] += 1
+        return orig_fold(self, si, *args, **kwargs)
+
+    def reading(name):
+        def call(t, *a, **k):
+            reads[name] += 1
+            return saved[name](t, *a, **k)
+        return call
+
+    def profiled_edge(self, *args, **kwargs):
+        torch.cuda.synchronize()
+        with record_function(EDGE_RANGE):
+            for n in names:
+                setattr(torch.Tensor, n, reading(n))
+            t0 = time.perf_counter()
+            try:
+                orig_edge(self, *args, **kwargs)
+            finally:
+                edge_ms.append(1e3 * (time.perf_counter() - t0))
+                for n in names:
+                    setattr(torch.Tensor, n, saved[n])
+            torch.cuda.synchronize()
+
+    StreamingCoordinator._fold = counted_fold
+    StreamingCoordinator._handoff_device = profiled_edge
+    try:
+        store = _lr_log(lr, records, (prefix,))
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            ops.fold.launches = 0
+            report, got, wall = _drive(card, store)
+            launches = ops.fold.launches
+    finally:
+        StreamingCoordinator._fold = orig_fold
+        StreamingCoordinator._handoff_device = orig_edge
+    if launches != report.folds or launches != sum(folds.values()):
+        raise AssertionError(f"fused_fold launched {launches} times for "
+                             f"{report.folds} fold steps ({dict(folds)})")
+    if report.late_dropped:
+        raise AssertionError(f"{report.late_dropped} late pairs dropped; the "
+                             f"oracles assume none")
+    print(f"congestion_chain on the card: {report.records_in} reports in "
+          f"{wall:.3f} s = {report.records_in / wall:.0f} records/s (host "
+          f"wall, under torch.profiler, a synchronize either side of each "
+          f"device handoff); {report.batches} micro-batches; folds per "
+          f"stage {[folds[i] for i in range(len(card.stages))]} = "
+          f"{launches} fused_fold launches; {report.handoffs} handoffs "
+          f"({len(edge_ms)} on the device edge: host time "
+          f"{sum(edge_ms):.3f} ms in all, median "
+          f"{statistics.median(edge_ms):.3f} ms, first {edge_ms[0]:.3f} ms, "
+          f"max {max(edge_ms):.3f} ms); {report.windows_emitted} windows "
+          f"emitted", flush=True)
+
+    events = prof.events()
+    # the range is recorded on the host and, as an annotation, on the
+    # device: the host's marks the handoff's window
+    windows = [(ev.time_range.start, ev.time_range.end) for ev in events
+               if ev.name == EDGE_RANGE and ev.device_type == DeviceType.CPU]
+    on_device = [ev for ev in events if ev.device_type == DeviceType.CUDA
+                 and ev.name != EDGE_RANGE]
+    inside = [ev for ev in on_device
+              if any(lo <= ev.time_range.start and ev.time_range.end <= hi
+                     for lo, hi in windows)]
+    dtoh = [ev for ev in on_device if "DtoH" in ev.name
+            and any(ev.time_range.start < hi and lo < ev.time_range.end
+                    for lo, hi in windows)]
+    if len(windows) != len(edge_ms) or not inside:
+        raise AssertionError(f"the device edge's handoffs were not measured: "
+                             f"{len(windows)} ranges for {len(edge_ms)} "
+                             f"handoffs, {len(inside)} device records in "
+                             f"them")
+    if dtoh or sum(reads.values()):
+        raise AssertionError(f"the device edge copied to the host: "
+                             f"{len(dtoh)} DtoH copies, {dict(reads)} tensor "
+                             f"reads over {len(windows)} handoffs")
+    dev_us = sum(ev.time_range.elapsed_us() for ev in inside)
+    work = Counter(ev.name[:48] for ev in inside)
+    print(f"congestion_chain device edge: {len(windows)} handoffs, 0 "
+          f"device-to-host copies (torch.profiler Memcpy DtoH records in "
+          f"their windows; {sum('DtoH' in ev.name for ev in on_device)} in "
+          f"the whole run) and 0 tensor reads on the host; device time "
+          f"{dev_us / 1e3:.3f} ms in all = {dev_us / len(windows):.2f} us a "
+          f"handoff (rows + fold, {len(inside)} device records); device work "
+          f"there: {dict(work)}", flush=True)
+
+    plain, want, plain_wall = _drive(program("cpu"),
+                                     _lr_log(lr, records, (prefix,)))
+    if not want or got != want:
+        diff = sorted(set(got) ^ set(want))[:4] or [
+            k for k in want if got.get(k) != want[k]][:4]
+        raise AssertionError(f"congestion_chain: card sinks != plain "
+                             f"(device='cpu') sinks: {diff}")
+    top, volume = lr.congestion_oracle(ts, seg)
+    oracle = {}
+    for start, rows in top.items():
+        oracle[f"congested/congestion/window-{start:.3f}-"
+               f"{start + lr.WINDOW_SIZE:.3f}"] = [list(r) for r in rows]
+    for start, per in volume.items():
+        oracle[f"xway-volume/congestion/window-{start:.3f}-"
+               f"{start + lr.WINDOW_SIZE:.3f}"] = per
+    if set(got) != set(oracle):
+        raise AssertionError(f"congestion_chain windows differ from the "
+                             f"oracle's: {sorted(set(got) ^ set(oracle))[:4]}")
+    for key, blob in got.items():
+        rows = [json.loads(line) for line in blob.splitlines()]
+        if key.startswith("xway-volume/"):
+            rows = dict(rows)
+        if rows != oracle[key]:
+            raise AssertionError(f"{key}: differs from the numpy oracle")
+    n_top = sum(1 for k in got if k.startswith("congested/"))
+    print(f"congestion_chain: {len(got)} sink objects ({n_top} top-"
+          f"{lr.TOP_K} windows, {len(got) - n_top} expressway windows) "
+          f"byte-identical to the program built with device='cpu' "
+          f"({plain_wall:.3f} s, {plain.records_in / plain_wall:.0f} "
+          f"records/s) and equal to the numpy oracles", flush=True)
+    return launches
+
+
+def phase_toll_join(torch, ops, lr, device, full=None) -> int:
+    """Phase 18: ``toll_inputs_join`` — mean speed ⋈ report count per
+    segment per minute, over phase 3's reports written under two
+    prefixes — on the card.  Both sides fold into one 4-channel carry at
+    channel bases 0 and 2 (checked on each side's first folds: the other
+    pair untouched), sized apart (``num_buckets=(left, right)``) so the
+    narrower side's carry is wider than its key space; the sinks must equal the program built with
+    ``device="cpu"`` byte for byte, and the numpy oracle; fused_fold's
+    launches (counts set to 0 just before) must equal the fold steps.
+    Returns the launches of the card run."""
+    from collections import Counter
+
+    from repro_torch.engine.plan import CompiledStreamAggregate
+
+    full = full or lr.FULL
+    prefixes = ("linear-road/speeds", "linear-road/counts")
+    ts, seg, speed = lr.position_reports(SEED, **full)
+    records = lr.records(ts, seg, speed)
+    opts = lr.build_options(full["n_xways"])
+    # per-side key tables: the speed side's fits the segments, the count
+    # side's is rounded up to a power of two; the shared carry takes the
+    # wider, so the speed side folds with carry_buckets != num_buckets
+    n_seg = opts["num_buckets"]
+    opts["num_buckets"] = (n_seg, 1 << (n_seg - 1).bit_length())
+
+    def program(dev):
+        return lr.toll_inputs_join(*prefixes).build(
+            device=dev, job_id="toll-inputs", **opts)
+
+    card = program("cuda")
+    sides = card.stages[0].sides
+    carry = sides[0].compiled.init_carry()
+    geometry = [(sp.channel_base, sp.compiled.plan.key_space.num_buckets,
+                 sp.compiled.plan.carry_buckets) for sp in sides]
+    wide = opts["num_buckets"][1]
+    if geometry != [(0, n_seg, wide), (2, wide, wide)] or \
+            tuple(carry.shape) != (sides[0].compiled.plan.window.n_slots
+                                   * wide, 4):
+        raise AssertionError(f"join sides (channel base, num_buckets, "
+                             f"carry_buckets) {geometry} with a "
+                             f"{tuple(carry.shape)} carry")
+    bases, checked = Counter(), Counter()
+    orig_step = CompiledStreamAggregate.step
+
+    def checked_step(self, rows, carry, min_window=None):
+        base = self.plan.reduce.channel_base
+        bases[base] += 1
+        if checked[base] >= 3:
+            return orig_step(self, rows, carry, min_window)
+        checked[base] += 1
+        other = [c for c in range(carry.shape[1]) if c not in (base,
+                                                                base + 1)]
+        before = carry[:, other].clone()
+        out = orig_step(self, rows, carry, min_window)
+        if not torch.equal(out[0][:, other], before):
+            raise AssertionError(f"a fold at channel base {base} touched "
+                                 f"channels {other}")
+        return out
+
+    CompiledStreamAggregate.step = checked_step
+    try:
+        store = _lr_log(lr, records, prefixes)
+        ops.fold.launches = 0
+        report, got, wall = _drive(card, store)
+        launches = ops.fold.launches
+    finally:
+        CompiledStreamAggregate.step = orig_step
+    if launches != report.folds or set(bases) != {0, 2}:
+        raise AssertionError(f"fused_fold launched {launches} times for "
+                             f"{report.folds} fold steps (per channel base "
+                             f"{dict(bases)})")
+    if report.late_dropped:
+        raise AssertionError(f"{report.late_dropped} late pairs dropped")
+    plain, want, plain_wall = _drive(program("cpu"),
+                                     _lr_log(lr, records, prefixes))
+    if not want or got != want:
+        raise AssertionError("toll_inputs_join: card sinks != plain "
+                             "(device='cpu') sinks")
+    oracle = lr.toll_inputs_oracle(ts, seg, speed)
+    slow_busy = 0
+    for start, per in oracle.items():
+        key = (f"toll-inputs/toll-inputs/window-{start:.3f}-"
+               f"{start + lr.MINUTE:.3f}")
+        rows = dict(json.loads(line) for line in got[key].splitlines())
+        if rows != per:
+            raise AssertionError(f"{key}: differs from the numpy oracle")
+        slow_busy += sum(1 for mean, n in rows.values()
+                         if mean < 40.0 and n > 50)
+    if len(got) != len(oracle):
+        raise AssertionError(f"{len(got)} join windows, oracle "
+                             f"{len(oracle)}")
+    print(f"toll_inputs_join on the card: {report.records_in} records "
+          f"(two logs of {len(records)}) in {wall:.3f} s = "
+          f"{report.records_in / wall:.0f} records/s (host wall); "
+          f"{report.batches} micro-batches, {launches} fused_fold launches "
+          f"= {report.folds} fold steps ({bases[0]} at channel base 0, "
+          f"{bases[2]} at base 2 — num_buckets {n_seg} / {wide} — one "
+          f"{tuple(carry.shape)} carry; the first "
+          f"{checked[0]} + {checked[2]} left the other pair untouched); "
+          f"{len(got)} windows byte-identical to device='cpu' "
+          f"({plain_wall:.3f} s, {plain.records_in / plain_wall:.0f} "
+          f"records/s) and equal to the numpy oracle; (segment, minute) "
+          f"pairs under 40 mph with more than 50 reports: {slow_busy}",
+          flush=True)
+    return launches
+
 
 def main(argv=None) -> int:
     global SEED
@@ -2738,6 +3123,8 @@ def main(argv=None) -> int:
 
     phase_batch_job(torch, hc, device)
     phase_job_service(torch, ops, lr, device)
+    phase_congestion_chain(torch, ops, lr, device)
+    phase_toll_join(torch, ops, lr, device)
 
     kernel = {"name": "fused_fold", "route": "cuda",
               "source": "src/repro_torch/kernels/fused_fold/csrc/"

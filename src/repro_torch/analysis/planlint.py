@@ -3,8 +3,8 @@
 The build validator (``pipeline.lower``) rejects grammar violations; this
 pass goes after the failure modes that today only surface **mid-stream**,
 after a job already holds pool replicas: ring-slot exhaustion, silent
-hashed-key merging, and sinks that collide with sources or the checkpoint
-namespace.  Each rule emits structured
+hashed-key merging, stalled watermarks across the stage DAG, and sinks
+that collide with sources or the checkpoint namespace.  Each rule emits structured
 :class:`~repro_torch.analysis.diagnostics.Diagnostic` records;
 ``Pipeline.build`` surfaces warnings.
 
@@ -18,6 +18,12 @@ PL001   the window ring must hold the full span: ``n_slots >=``
 PL002   hashed key spaces fold labels to 24-bit raw ids; the birthday
         bound on ``num_buckets`` expected keys estimates the odds two
         distinct keys silently merge — warn above 1%
+PL004   watermark wiring: every stage side needs an input channel
+        (external stream or in-edge) or its watermark pins at -inf and no
+        window ever finalizes; carry-fed stages receive finalized windows
+        in watermark order, so lateness slack there is dead config; a
+        join over sides with different upstream window sizes holds
+        windows open to the slower side (min-over-inputs)
 PL005   sink prefixes must not overlap each other, any source log prefix
         (the pipeline would re-ingest its own output), or the reserved
         ``jobs/`` checkpoint namespace (restore scans would list the
@@ -27,11 +33,9 @@ PL005   sink prefixes must not overlap each other, any source log prefix
 PL001 and PL002 read windowed record stages; an array (batch) program
 has none, so only PL005 applies to it, as in the reference.
 
-The port lowers single-stage, single-side programs only, so the
-reference's PL003 (group-mode capacity), PL004 (watermark wiring across
-edges and join sides) and PL006 (carry donation; the port updates its
-carry in place) cannot fire here; each arrives with the slice that ports
-what it checks (ROADMAP Queue A #6-#8).
+The reference's PL003 (group-mode capacity) arrives with group mode
+(ROADMAP Queue A #8).  PL006 (carry donation) has no counterpart: the
+port updates its carry in place, so there is no donation to misuse.
 """
 
 from __future__ import annotations
@@ -55,6 +59,7 @@ RESERVED_PREFIXES = ("jobs/",)
 RULES = {
     "PL001": "window ring too small for the window span (+ lateness)",
     "PL002": "hashed fold_key24 collision probability above threshold",
+    "PL004": "watermark wiring: unfed side / dead lateness / lagging join",
     "PL005": "sink prefix overlaps a sink, a source, or a reserved namespace",
 }
 
@@ -141,6 +146,53 @@ def _check_hash_collisions(built, out: list) -> None:
             loc=f"stage {st.index}"))
 
 
+def _check_watermarks(built, out: list) -> None:
+    """PL004 — watermark monotonicity is wired, not assumed: a stage
+    side's watermark is the min over its input channels, so a side with
+    no channel pins the stage at -inf forever, and lateness slack on a
+    carry-only stage can never admit anything (finalized windows arrive
+    in watermark order)."""
+    ext: dict[int, set[int]] = {}
+    for si, side in built.inputs:
+        ext.setdefault(si, set()).add(side)
+    in_edges: dict[int, list] = {}
+    for e in built.edges:
+        in_edges.setdefault(e.dst, []).append(e)
+    for st in _record_stages(built):
+        fed_sides = set(ext.get(st.index, ()))
+        for e in in_edges.get(st.index, ()):
+            fed_sides.add(e.dst_side)
+        for side in range(len(st.sides)):
+            if side not in fed_sides:
+                name = st.sides[side].name
+                out.append(Diagnostic(
+                    "PL004", ERROR,
+                    f"side {side} ({name}) has no input channel — no "
+                    f"external stream and no in-edge feeds it, so the "
+                    f"stage watermark (min over inputs) stays at -inf "
+                    f"and no window ever finalizes",
+                    loc=f"stage {st.index}"))
+        carry_only = st.index not in ext and in_edges.get(st.index)
+        if carry_only and st.allowed_lateness > 0:
+            out.append(Diagnostic(
+                "PL004", WARNING,
+                f"allowed_lateness={st.allowed_lateness} on a stage fed "
+                f"only through the carry: finalized windows arrive in "
+                f"watermark order, so the slack admits nothing and only "
+                f"delays finalization", loc=f"stage {st.index}"))
+        if st.is_join and len(in_edges.get(st.index, ())) == 2:
+            sizes = {built.stages[e.src].window.size
+                     for e in in_edges[st.index]
+                     if built.stages[e.src].window is not None}
+            if len(sizes) > 1:
+                out.append(Diagnostic(
+                    "PL004", INFO,
+                    f"join over upstream window sizes {sorted(sizes)}: "
+                    f"the min-over-inputs watermark holds windows open "
+                    f"until the slower side catches up — size n_slots "
+                    f"for the skew", loc=f"stage {st.index}"))
+
+
 def _check_sink_prefixes(built, out: list,
                          source_prefixes=()) -> None:
     """PL005 — ``collect_outputs`` and restore scans are prefix
@@ -188,6 +240,7 @@ def check_plan(built, *, source_prefixes=()) -> list:
     out: list = []
     _check_ring_slots(built, out)
     _check_hash_collisions(built, out)
+    _check_watermarks(built, out)
     _check_sink_prefixes(built, out, source_prefixes)
     return out
 
@@ -216,13 +269,19 @@ def _describe_stage(built, st) -> str:
 
 
 def explain_plan(built, *, source_prefixes=()) -> str:
-    """Human-readable program summary + the full diagnostic report (all
-    levels, info included) — ``BuiltPipeline.explain()``."""
+    """Human-readable program summary — every stage's window/ring/bucket
+    geometry and every edge's transport — plus the full diagnostic report
+    (all levels, info included): ``BuiltPipeline.explain()``."""
     lines = [f"BuiltPipeline job_id={built.job_id} "
              f"key_space={built.key_space} n_workers={built.n_workers} "
              f"batch_records={built.batch_records} backend={built.backend}"]
     for st in built.stages:
         lines.append("  " + _describe_stage(built, st))
+    for e in built.edges:
+        transport = "device" if e.device else "host"
+        eager = " eager" if e.eager else ""
+        lines.append(f"  edge {e.src}→{e.dst} side={e.dst_side} "
+                     f"[{transport}{eager}]")
     diags = check_plan(built, source_prefixes=source_prefixes)
     if not diags:
         lines.append("planlint: clean")

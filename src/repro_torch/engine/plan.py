@@ -20,6 +20,11 @@ CUDA tensors, its plain PyTorch version for CPU tensors).  That is the
 carry layout of the reference's ``backend="pallas"``, so checkpoints move
 between the two packages unchanged.
 
+Plans may share one carry: a windowed join's two sides fold into
+disjoint channel pairs (``ReduceSpec.channel_base``) of one
+``(n_slots * carry_buckets, 4)`` carry, and ``handoff_rows`` turns a
+finalized window into a successor stage's wire rows on the device.
+
 A batch plan (``window=None``) compiles with its map UDF to a
 ``CompiledBatchPlan``: ``run(shards)`` applies the UDF to each worker's
 shard, as the reference's ``vmap`` does, and combines every worker's
@@ -171,14 +176,27 @@ class ReduceSpec:
     ranking kind).  ``combine_fn`` is a batch plan's combiner
     (``stages.resolve_combine_fn``: ``None`` and ``"pallas"`` name the
     ``hash_combine`` kernel); the streaming fold is its own combiner.
-    ``group`` mode and shared join carries (the kernel already honours a
-    channel offset) are not ported yet.
+    ``group`` mode is not ported yet.
+
+    ``channels`` / ``channel_base`` let several plans share one aggregate
+    carry: each plan folds its ``[value, 1]`` pair into channels
+    ``[channel_base, channel_base + 1]`` of a ``channels``-wide carry and
+    leaves the rest untouched — the windowed join, whose left and right
+    streams are two compiled plans over disjoint channel pairs of one
+    carry.  ``carry_buckets`` widens the carry's bucket axis past the
+    plan's own key space (0 → the key space width), so join sides with
+    per-side key spaces each bucketize within their own
+    ``KeySpace.num_buckets`` but flatten window slots over the shared
+    width.
     """
 
     mode: str = "aggregate"         # "aggregate" | "top_k" ("group": later)
     reduce_fn: str | Callable = "sum"
     k: int = 0                      # top_k mode: selection capacity
     combine_fn: str | Callable | None = None
+    channels: int = 2               # carry width (2 per resident plan)
+    channel_base: int = 0           # this plan's [sum, count] offset
+    carry_buckets: int = 0          # shared carry bucket width (0 → own)
 
     @classmethod
     def top_k(cls, k: int) -> "ReduceSpec":
@@ -197,6 +215,13 @@ class ExecutionPlan:
     reduce: ReduceSpec
     n_workers: int
     window: WindowSpec | None = None
+
+    @property
+    def carry_buckets(self) -> int:
+        """Bucket width of the carry this plan folds into — the plan's own
+        key space unless ``ReduceSpec.carry_buckets`` widens it (per-side
+        key spaces over one shared join carry)."""
+        return self.reduce.carry_buckets or self.key_space.num_buckets
 
     def compile(self, map_fn: Callable | None = None, *,
                 backend: str = BACKEND, device="cuda", finalize: bool = True
@@ -220,6 +245,15 @@ class ExecutionPlan:
             raise ValueError(f"unknown reduce mode {rs.mode!r}")
         if rs.mode == "top_k" and rs.k < 1:
             raise ValueError("top_k mode needs k >= 1")
+        if rs.mode == "top_k" and rs.channel_base != 0:
+            raise ValueError("top_k ranks channels [0, 2) — it cannot "
+                             "share a carry at a nonzero channel_base")
+        if rs.channels < 2 or rs.channel_base + 2 > rs.channels:
+            raise ValueError("channel window [base, base+2) must fit the "
+                             "carry's channel count")
+        if rs.carry_buckets and rs.carry_buckets < self.key_space.num_buckets:
+            raise ValueError("carry_buckets must cover the plan's own key "
+                             "space (carry width >= num_buckets)")
         if self.window is None:
             if map_fn is None:
                 raise ValueError("batch plans need a map_fn")
@@ -364,21 +398,24 @@ class CompiledStreamAggregate:
 
     def __init__(self, plan: ExecutionPlan, device: torch.device):
         ws = plan.window
-        nb = plan.key_space.num_buckets
         self.plan = plan
         self.device = device
-        self._buckets = nb
+        self._buckets = plan.carry_buckets
         self._geometry = dict(
             fanout=ws.fanout if ws.fanout_on_device else 1,
-            n_slots=ws.n_slots, num_buckets=nb, carry_buckets=nb,
+            n_slots=ws.n_slots, num_buckets=plan.key_space.num_buckets,
+            carry_buckets=plan.carry_buckets,
+            channel_base=plan.reduce.channel_base,
             hashed=plan.key_space.is_hashed,
             host_wire=not ws.fanout_on_device, kind="sum")
 
     def init_carry(self) -> torch.Tensor:
-        """Zeroed carried window state — ``(n_slots * num_buckets, 2)``
-        float32 ``[sum, count]`` — on the plan's device."""
-        return torch.zeros((self.plan.window.n_slots * self._buckets, 2),
-                           dtype=torch.float32, device=self.device)
+        """Zeroed carried window state — ``(n_slots * carry_buckets,
+        channels)`` float32, ``[sum, count]`` per plan (both sides' pairs
+        for a join, which shares one carry) — on the plan's device."""
+        return torch.zeros((self.plan.window.n_slots * self._buckets,
+                            self.plan.reduce.channels), dtype=torch.float32,
+                           device=self.device)
 
     def step(self, rows, carry: torch.Tensor,
              min_window: int | None = None):
@@ -402,8 +439,8 @@ class CompiledStreamAggregate:
         return carry[slot * nb:(slot + 1) * nb]
 
     def read_slot(self, carry: torch.Tensor, slot: int) -> np.ndarray:
-        """One finalized window's dense ``(num_buckets, 2)`` aggregate;
-        only the window's rows cross to the host."""
+        """One finalized window's dense ``(carry_buckets, channels)``
+        aggregate; only the window's rows cross to the host."""
         return _to_host(self._slot_rows(carry, slot))
 
     def clear_slot(self, carry: torch.Tensor, slot: int) -> torch.Tensor:
@@ -453,11 +490,29 @@ class CompiledStreamAggregate:
             raise ValueError("plan has no top-k capacity (reduce.k < 1)")
         if kind is None:
             kind = rs.reduce_fn if isinstance(rs.reduce_fn, str) else "sum"
-        agg = self._slot_rows(carry, slot)
+        agg = self._slot_rows(carry, slot)[:self.plan.key_space.num_buckets]
         ids, vals, valid = stages.top_k_buckets(agg, rs.k, kind)
         return _to_host(ids), _to_host(vals), _to_host(valid)
 
-    def handoff_rows(self, *args, **kwargs):
-        """Multi-stage carry handoff — not ported yet."""
-        raise not_ported("the multi-stage carry handoff",
-                         "Queue A #6 (multi-stage chains and tee)")
+    # -- carry handoff (multi-stage chains and DAG fan-out edges) ------------
+    def handoff_rows(self, carry: torch.Tensor, slot: int,
+                     relabel: torch.Tensor, last_window: int,
+                     n_windows: int, kind: str,
+                     dst_rows: int) -> torch.Tensor:
+        """One finalized window's aggregates as a *successor* plan's wire
+        rows, on the carry's device — the reduce → window → reduce seam
+        of a stage DAG edge.  A teed stage calls this once per out-edge
+        with that edge's own ``relabel`` table and the destination's wire
+        size ``dst_rows``, so one finalized slot fans out to several
+        downstream carries without visiting the host.
+
+        The slot's rows are re-keyed through ``relabel`` (this plan's
+        bucket id → the destination's key id, ``< 0`` = unassigned),
+        stamped with the re-windowed span ``[last_window, n_windows]``
+        (already rebased by the caller) and valued with the finalized
+        ``kind`` aggregate (``stages.carry_handoff_rows``).  Returns flat
+        ``(dst_rows, 5)`` device-wire rows — the reference's
+        ``shard_map``/``pallas`` layout."""
+        return stages.carry_handoff_rows(
+            self._slot_rows(carry, slot), relabel, last_window, n_windows,
+            kind, dst_rows, channel_base=self.plan.reduce.channel_base)

@@ -7,9 +7,11 @@ batch plans' aggregating shuffle — the Mapper's combiner
 (``local_combine_dense``, the ``hash_combine`` kernel) with exact
 per-bucket collision accounting for hashed key spaces
 (``distinct_keys_per_bucket``); and the fixed-capacity top-k over a
-dense aggregate.  The streaming window fan-out and scatter-accumulate
-live in the fused fold kernel (``kernels/fused_fold``); the group-mode
-and handoff stages of the reference are queued in ``ROADMAP.md``.
+dense aggregate; and the carry handoff (``carry_handoff_rows``), which
+turns one finalized window of a stage into the next stage's wire rows on
+the device.  The streaming window fan-out and scatter-accumulate live in
+the fused fold kernel (``kernels/fused_fold``); the group-mode stages of
+the reference are queued in ``ROADMAP.md``.
 
 The reference runs these stages once per worker under ``vmap`` or
 ``shard_map`` and finishes with a collective.  The port runs them once
@@ -186,3 +188,53 @@ def top_k_buckets(agg: torch.Tensor, k: int, kind: str = "sum"
     valid = top_vals > float("-inf")
     return (top_ids.to(torch.int32), torch.where(valid, top_vals, 0.0),
             valid)
+
+
+# ---------------------------------------------------------------------------
+# Carry handoff (multi-stage chains + DAG fan-out: one plan's finalized
+# windows feed one or more successor plans, one call per edge)
+# ---------------------------------------------------------------------------
+
+def carry_handoff_rows(agg: torch.Tensor, relabel: torch.Tensor,
+                       last_window: int, n_windows: int, kind: str,
+                       n_rows: int, channel_base: int = 0) -> torch.Tensor:
+    """One finalized window's dense aggregate → a successor plan's wire
+    rows, on the aggregate's device.  Pure per-edge function: a teed stage
+    runs it once per out-edge with that edge's own ``relabel`` table.
+
+    ``agg`` is the ``(num_buckets, channels)`` slice of a finalized
+    window; its ``[sum, count]`` pair lives at ``channel_base``.  Each
+    occupied bucket becomes one device-wire row ``[last_window, n_windows,
+    key, value, valid]`` for the next stage's plan: ``relabel`` (int32, on
+    the same device) maps this plan's bucket ids to the next key space
+    (``< 0`` marks unassigned buckets), ``last_window`` / ``n_windows``
+    are the re-windowed span of the window's start (already rebased by the
+    caller; every row of one handoff shares them), and the value is the
+    finalized aggregate per ``kind`` (count | sum | mean, the mean as the
+    float32 quotient ``sum / max(count, 1)``).  The output is padded to
+    ``n_rows`` with invalid (all-zero) rows.  Nothing here reads a tensor
+    back to the host, so the handoff and the next stage's fold queue on
+    one stream without a sync between them."""
+    sums = agg[:, channel_base]
+    counts = agg[:, channel_base + 1]
+    if kind == "count":
+        value = counts
+    elif kind == "sum":
+        value = sums
+    elif kind == "mean":
+        value = sums / torch.clamp(counts, min=1.0)
+    else:
+        raise ValueError(f"unknown handoff aggregate kind {kind!r}")
+    n = agg.shape[0]
+    if relabel.shape[0] != n:
+        raise ValueError(f"relabel table has {relabel.shape[0]} entries for "
+                         f"{n} buckets")
+    if n_rows < n:
+        raise ValueError(f"n_rows={n_rows} cannot hold {n} buckets")
+    rows = torch.zeros((n_rows, 5), dtype=torch.float32, device=agg.device)
+    rows[:n, 0] = float(last_window)
+    rows[:n, 1] = float(n_windows)
+    rows[:n, 2] = relabel.to(torch.float32)
+    rows[:n, 3] = value.to(torch.float32)
+    rows[:n, 4] = ((counts > 0) & (relabel >= 0)).to(torch.float32)
+    return rows

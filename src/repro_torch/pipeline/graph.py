@@ -18,9 +18,9 @@ the graph and lowers every stage chain to ``repro_torch.engine``
 execution plans (``repro_torch.pipeline.lower``); the built artifact then
 runs the *same* graph in batch mode (one drive over an object-store
 prefix) or streaming mode (micro-batches through the
-``StreamingCoordinator``) with bit-identical per-window results.  This
-port lowers single-stage record chains; the other shapes below raise
-``NotImplementedError`` at ``build()`` and are queued in ``ROADMAP.md``.
+``StreamingCoordinator``) with bit-identical per-window results.  Group
+mode (``reduce(..., mode="group")``) is not ported yet: it raises
+``NotImplementedError`` at ``build()`` and is queued in ``ROADMAP.md``.
 
 Two source families share the grammar:
 

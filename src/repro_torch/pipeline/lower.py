@@ -2,14 +2,38 @@
 
 ``build_pipeline`` walks a ``Pipeline`` graph, validates the stage grammar
 (one source; maps fuse; ``window`` before ``reduce``; ``top_k`` only over
-an aggregate reduce) and lowers the chain onto ``repro_torch.engine``:
+an aggregate reduce; joins windowed and reduced on both sides) and lowers
+each stage chain onto ``repro_torch.engine``, compiled on the build's
+``device`` (``"cuda"`` unless the caller asks for ``"cpu"``):
 
-* adjacent ``map`` nodes fuse into a single host transform;
-* the chain's window and reduce become one ``ExecutionPlan`` compiled on
-  the build's ``device`` (``"cuda"`` unless the caller asks for
-  ``"cpu"``): the fused fold over a flat carry slab;
+* record chains → one ``ExecutionPlan`` per side: the fused fold over a
+  flat carry slab; adjacent ``map`` nodes fuse into a single host
+  transform;
+* a chain that continues *past* a reduce — ``…reduce(...).map(...)
+  .key_by(...).window(...).reduce(...)`` — splits at each reduce boundary
+  into a **sequence of stages**, each with its own plan and carry; a
+  finalized window of stage N becomes stage N+1's input batch through a
+  carry *handoff* (``engine.stages.carry_handoff_rows`` — on the device
+  when the boundary has no host transform, the host record path
+  otherwise);
+* ``tee(branch, …)`` → a stage **DAG**: the teed stage keeps one carry but
+  gains several out-*edges* (``BuiltPipeline.edges``), one per branch;
+  each edge picks its own transport and, at run time, its own bucket →
+  next-key relabel table; a join's two inputs may be multi-stage chains,
+  so a stage may also have two in-edges.  Stages are emitted in
+  topological order (every edge points forward) and every terminal stage
+  of a fan-out carries its own distinct sink prefix;
+* stage-local ``reduce(..., num_buckets=, n_slots=)`` options override the
+  build-wide defaults per ``StagePlan``;
+* a windowed join → **two plans sharing one carry**: each side's plan
+  folds its ``[value, 1]`` pair into a disjoint channel pair
+  (``ReduceSpec.channel_base`` 0 and 2 of a 4-channel carry); per-side
+  key-space sizes (``num_buckets=(left, right)``) widen the shared carry
+  to the larger side (``ReduceSpec.carry_buckets``) while each side
+  buckets within its own declared space;
 * ``Windowing.session(gap)`` → the engine's ``WindowSpec.session``
-  variant (host-wire fold, cell-addressed carry);
+  variant (host-wire fold, cell-addressed carry), in single-stage
+  pipelines only;
 * ``top_k(k)`` → ``ReduceSpec(mode="top_k")`` — the aggregate fold plus
   the fixed-capacity heavy-hitters selection at finalization;
 * an array pipeline (``from_source(shards=...)``) with its one ``map``
@@ -19,14 +43,13 @@ an aggregate reduce) and lowers the chain onto ``repro_torch.engine``:
 The result is a ``BuiltPipeline`` — the program the
 ``StreamingCoordinator`` drives (streaming mode) and the batch runner
 drives once over the whole input (batch mode), with bit-identical
-per-window output bytes; an array pipeline's program runs once over its
-shards.
+per-window output bytes on every branch; an array pipeline's program runs
+once over its shards.
 
-The reference also lowers multi-stage chains, ``tee`` fan-out, windowed
-joins and group-mode reduction, and compiles to simulated-worker and
-multi-process backends.  None of these is ported yet: each raises
-``NotImplementedError`` at build naming the ``ROADMAP.md`` item that
-queues it — nothing falls back.
+The reference also lowers group-mode reduction and compiles to
+simulated-worker and multi-process backends.  Neither is ported yet: each
+raises ``NotImplementedError`` at build naming the ``ROADMAP.md`` item
+that queues it — nothing falls back.
 """
 
 from __future__ import annotations
@@ -50,7 +73,8 @@ _STAGE_RANK = {"source": 0, "map": 1, "key_by": 2, "window": 3,
                "reduce": 4, "top_k": 5, "join": 6, "tee": 6, "sink": 7}
 
 _ORDER_HINT = ("stage order is source → map* → key_by → window → reduce "
-               "→ top_k → sink")
+               "→ top_k → join/tee → sink; a chain may continue past a "
+               "reduce with another map* → key_by → window → reduce stage")
 
 _ARRAY_ONE_SHOT = ("array pipelines are one-shot batch jobs: no window/join/"
                    "tee nodes and no continued stages")
@@ -92,9 +116,11 @@ def fuse_maps(fns: list[Callable]) -> Callable | None:
 
 @dataclass(frozen=True)
 class SourceSpec:
-    """Where the chain's records come from (bound at build or at run)."""
+    """Where one side's records come from (bound at build or at run).
+    ``kind="carry"`` marks a continued stage: its input is the previous
+    stage's finalized windows, handed off through the carry."""
 
-    kind: str           # "log" | "records" | "array" | "unbound"
+    kind: str           # "log" | "records" | "array" | "unbound" | "carry"
     prefix: str | None = None
     records: list | None = None
     batch_records: int = 1024
@@ -103,7 +129,8 @@ class SourceSpec:
 
 @dataclass(frozen=True)
 class _Chain:
-    """The parsed linear stage chain."""
+    """One parsed linear stage chain (a join has two; a multi-stage
+    pipeline has one per reduce boundary)."""
 
     source: SourceSpec
     transform: Callable | None
@@ -112,14 +139,16 @@ class _Chain:
     windowing: Windowing | None
     reduce_spec: str | Callable
     reduce_mode: str
-    top: dict | None = None         # the chain's top_k node, if any
+    top: dict | None = None         # this stage's top_k node, if any
     options: dict = dataclasses.field(default_factory=dict)  # stage-local
 
 
 @dataclass(frozen=True)
 class SidePlan:
-    """The chain's lowered form: the fused host transform plus the
-    compiled execution plan folding into the carry."""
+    """One side's lowered stage chain: the fused host transform plus the
+    compiled execution plan folding into its channel pair of the carry.
+    ``num_buckets`` is the side's *own* key-space width — for asymmetric
+    joins it can be narrower than the shared carry."""
 
     name: str
     source: SourceSpec
@@ -127,41 +156,79 @@ class SidePlan:
     key_fn: Callable
     value_fn: Callable
     compiled: Any
+    channel_base: int = 0
     num_buckets: int = 0
 
 
 @dataclass(frozen=True)
 class EmitSpec:
-    """How a finalized window turns into output records."""
+    """How a finalized window turns into output records — the store
+    emission of a terminal stage, or the handoff records of an
+    intermediate one."""
 
-    kind: str                       # "aggregate" | "top_k"
+    kind: str                       # "aggregate" | "top_k" | "join"
     aggregation: str = "count"      # aggregate / session emission kind
     k: int = 0
     rank_by: str = "sum"            # top_k ranking kind
+    join_aggs: tuple = ("sum", "sum")
+
+
+@dataclass(frozen=True)
+class StageEdge:
+    """One edge of the stage DAG: finalized windows of stage ``src``
+    become input batches of stage ``dst``, folding into side ``dst_side``
+    of its carry (a join destination has two sides).  ``device`` picks the
+    on-device handoff transport; ``eager`` marks an identity boundary
+    whose destination key dictionary registers eagerly.  Each edge owns
+    its own bucket → next-key relabel table at run time — a teed stage
+    with several out-edges relabels independently per successor."""
+
+    src: int
+    dst: int
+    dst_side: int = 0
+    device: bool = False
+    eager: bool = False
 
 
 @dataclass(frozen=True)
 class StagePlan:
-    """The lowered stage: its compiled side plan, window shape (``None``
-    for an array pipeline), and emission spec."""
+    """One lowered stage of the DAG: its compiled side plan(s), window
+    shape (``None`` for an array pipeline), and emission/handoff spec.  A
+    plain pipeline has one stage; a windowed join has one stage with two
+    sides; a multi-stage chain has one per reduce boundary; a tee'd graph
+    has one per branch stage.  ``BuiltPipeline.edges`` wires them — a
+    stage with no out-edges emits to the store (under ``output_prefix``
+    when set, the pipeline default otherwise)."""
 
     index: int
     sides: tuple[SidePlan, ...]
     window: Windowing | None
     mode: str                       # fold machinery: "aggregate"
     emit: EmitSpec
-    num_buckets: int                # carry bucket width
+    num_buckets: int                # carry bucket width (max over sides)
     n_slots: int
     allowed_lateness: float
+    handoff_device: bool = False    # every out-edge hands off on device
+    #: every out-edge passes keys through unchanged (no host transform,
+    #: default key_by, aggregate emission) — each successor's dense
+    #: dictionary registers a key the moment this stage first sees it, so
+    #: both handoff transports (and every checkpoint) agree on the id
+    #: order
+    eager_boundary: bool = False
+    output_prefix: str | None = None    # terminal stages: this sink's prefix
 
     @property
     def is_session(self) -> bool:
         return self.window is not None and self.window.is_session
 
+    @property
+    def is_join(self) -> bool:
+        return len(self.sides) == 2
+
     def assigner(self):
         """Fixed-window assigner (None for session windows)."""
         w = self.window
-        if w.is_session:
+        if w is None or w.is_session:
             return None
         if w.kind == "tumbling":
             return TumblingWindows(w.size)
@@ -177,12 +244,17 @@ class StagePlan:
 
 @dataclass
 class BuiltPipeline:
-    """A validated, lowered single-stage pipeline — the program both
-    execution modes drive, with its carry on ``device`` — or an array
-    pipeline's one-shot ``batch_plan``."""
+    """A validated, lowered pipeline — the program both execution modes
+    drive, with its carries on ``device`` — or an array pipeline's one-shot
+    ``batch_plan``.  ``stages`` is the executable DAG in topological order:
+    one entry for a plain chain or join, several for a multi-stage or
+    tee'd graph wired by the carry-handoff ``edges`` (every edge points
+    forward).  ``inputs`` maps each external input stream to its ``(stage,
+    side)`` ingestion point — one entry for a plain pipeline, two for a
+    join (whether its sides are single- or multi-stage chains)."""
 
     stages: tuple[StagePlan, ...]
-    num_buckets: int
+    num_buckets: int                # stage-0 carry bucket width
     n_workers: int
     n_slots: int
     batch_records: int
@@ -194,11 +266,15 @@ class BuiltPipeline:
     job_id: str
     device: Any
     backend: str = BACKEND
+    handoff: str = "device"
     batch_plan: Any = None          # array pipelines: CompiledBatchPlan
+    edges: tuple[StageEdge, ...] = ()
+    inputs: tuple[tuple[int, int], ...] = ((0, 0),)
 
-    # -- single-stage views (what planlint and the runtime read) --------------
+    # -- views of the DAG -------------------------------------------------------
     @property
     def sides(self) -> tuple[SidePlan, ...]:
+        """Stage 0's side plans (one, or a join's two)."""
         return self.stages[0].sides
 
     @property
@@ -207,20 +283,35 @@ class BuiltPipeline:
         return self.stages[0].window is None
 
     @property
+    def is_join(self) -> bool:
+        return any(st.is_join for st in self.stages)
+
+    @property
+    def is_multistage(self) -> bool:
+        return len(self.stages) > 1
+
+    @property
     def final_stages(self) -> tuple[int, ...]:
-        return (0,)
+        """Stages with no out-edge — the DAG's terminal stages, each
+        emitting finalized windows to its own output prefix."""
+        srcs = {e.src for e in self.edges}
+        return tuple(i for i in range(len(self.stages)) if i not in srcs)
 
     def stage_prefix(self, si: int) -> str:
-        """The output prefix stage ``si`` emits under (one sink here)."""
-        return self.output_prefix
+        """The output prefix stage ``si`` emits under (its own sink, or
+        the pipeline default)."""
+        return self.stages[si].output_prefix or self.output_prefix
 
     def output_prefixes(self) -> tuple[str, ...]:
-        """The normalized ``<sink>/<job_id>/`` key prefix this program's
-        windows land under."""
-        return (f"{self.stage_prefix(0).rstrip('/')}/{self.job_id}/",)
+        """One normalized ``<sink>/<job_id>/`` key prefix per terminal
+        stage — everywhere this program's windows land in the store."""
+        return tuple(dict.fromkeys(
+            f"{self.stage_prefix(si).rstrip('/')}/{self.job_id}/"
+            for si in self.final_stages))
 
     def collect_outputs(self, store) -> dict:
-        """Every window this program has persisted, keyed by object key."""
+        """Every window this program has persisted, across all of its
+        terminal sinks, keyed by object key."""
         return {m.key: store.get(m.key)
                 for prefix in self.output_prefixes()
                 for m in store.list_objects(prefix)}
@@ -240,35 +331,40 @@ class BuiltPipeline:
         return check_plan(self, source_prefixes=source_prefixes)
 
     def explain(self, *, source_prefixes=()) -> str:
-        """Human-readable program summary plus the full planlint report."""
+        """Human-readable program summary — every stage's window/ring/
+        bucket geometry, every edge's transport — plus the full planlint
+        report."""
         from ..analysis.planlint import explain_plan
         return explain_plan(self, source_prefixes=source_prefixes)
 
     # -- execution -------------------------------------------------------------
     def run(self, source_or_data=None, *, options=None, store=None,
-            meta=None, bus=None, autoscaler=None, pool=None,
+            meta=None, sources=None, bus=None, autoscaler=None, pool=None,
             announce: bool = True, flush: bool = True,
             mode: str | None = None):
         """The one front door for executing the program: a
-        ``StreamSource`` streams through the pipelined coordinator, an
-        in-memory record list (or an array pipeline's shards) runs as one
-        batch, and ``None`` falls back to the graph's bound source.
-        Returns a ``StreamReport`` (streaming), ``(outputs, report)``
-        (windowed batch) or ``(result, stats)`` (array)."""
+        ``StreamSource``/``JoinSource`` (or a pair with a live side)
+        streams through the pipelined coordinator, an in-memory record
+        list (or a join's pair of lists, or an array pipeline's shards)
+        runs as one batch, and ``None`` falls back to the graph's bound
+        source.  Returns a ``StreamReport`` (streaming), ``(outputs,
+        report)`` (windowed batch) or ``(result, stats)`` (array)."""
         from .runtime import run
         return run(self, source_or_data, options=options, store=store,
-                   meta=meta, bus=bus, autoscaler=autoscaler, pool=pool,
-                   announce=announce, flush=flush, mode=mode)
+                   meta=meta, sources=sources, bus=bus,
+                   autoscaler=autoscaler, pool=pool, announce=announce,
+                   flush=flush, mode=mode)
 
-    def run_batch(self, store=None, *, data=None, source=None,
+    def run_batch(self, store=None, *, data=None, source=None, sources=None,
                   options=None):
         """One-shot pinned explicitly — :meth:`run` with ``mode="batch"``:
         an array pipeline runs its batch plan over ``data`` (or the bound
         shards) and returns ``(result, stats)``; a windowed pipeline folds
-        ``source`` in one pass and returns ``(outputs, report)``."""
+        ``source`` (``sources=(left, right)`` for a join) in one pass and
+        returns ``(outputs, report)``."""
         from .runtime import run_batch
         return run_batch(self, store, data=data, source=source,
-                         options=options)
+                         sources=sources, options=options)
 
 
 def assert_no_prefix_collision(prefixes: "tuple[str, ...] | list[str]",
@@ -298,76 +394,128 @@ def assert_no_prefix_collision(prefixes: "tuple[str, ...] | list[str]",
 # Parsing + validation
 # ---------------------------------------------------------------------------
 
-def _parse_chain(p: Pipeline) -> tuple[_Chain, str | None]:
-    """Walk the pipeline's nodes into one stage chain; returns ``(chain,
-    sink_prefix)``.  Shapes the port does not lower yet raise
-    ``NotImplementedError``."""
+def _parse_chain(p: Pipeline, *, side: str, allow_join: bool,
+                 allow_stages: bool = False, on: Callable | None = None,
+                 allow_tee: bool = False):
+    """Walk one pipeline's nodes into stage chains (split at each reduce
+    boundary when ``allow_stages``); returns ``(chains, join_node,
+    tee_node, sink_prefix)`` where ``chains[i].top`` carries stage i's
+    top_k node and ``tee_node`` is the trailing fan-out, if any."""
     if not p.nodes or p.nodes[0].op != "source":
-        raise PipelineError("a pipeline starts at Pipeline.from_source(...)")
+        raise PipelineError(f"{side}: a pipeline starts at "
+                            f"Pipeline.from_source(...)")
     src = p.nodes[0].params
-    if src["kind"] == "carry-stub":
-        raise not_ported("tee branches", "Queue A #6 (multi-stage chains and "
-                                         "tee)")
     is_array = src["kind"] == "array"
-    source = SourceSpec(kind=src["kind"], prefix=src["prefix"],
-                        records=src["records"],
-                        batch_records=src["batch_records"],
-                        shards=src["shards"])
-    st = {"maps": [], "key_fn": None, "windowing": None, "reduce": None,
-          "top": None}
+    source = SourceSpec(
+        kind="carry" if src["kind"] == "carry-stub" else src["kind"],
+        prefix=src["prefix"], records=src["records"],
+        batch_records=src["batch_records"], shards=src["shards"])
+    chains: list[_Chain] = []
+    join_node = None
+    tee_node = None
     sink_prefix = None
+
+    def _fresh():
+        return {"maps": [], "key_fn": None, "windowing": None,
+                "reduce": None, "top": None}
+
+    def _close(stage: dict) -> None:
+        n = len(chains)
+        if stage["reduce"] is None:
+            what = "a pipeline" if n == 0 else f"stage {n + 1} of the chain"
+            raise PipelineError(
+                f"{side}: {what} needs a reduce node ({_ORDER_HINT})")
+        if is_array and len(stage["maps"]) != 1:
+            raise PipelineError("array pipelines need exactly one map node "
+                                "(the device UDF)")
+        chains.append(_Chain(
+            source=source if n == 0 else SourceSpec(kind="carry"),
+            transform=fuse_maps(stage["maps"]),
+            key_fn=stage["key_fn"] or _default_key,
+            value_fn=_default_value,
+            windowing=stage["windowing"],
+            reduce_spec=stage["reduce"]["spec"],
+            reduce_mode=stage["reduce"]["mode"],
+            top=stage["top"],
+            options={k: stage["reduce"][k]
+                     for k in ("num_buckets", "n_slots")
+                     if stage["reduce"].get(k) is not None}))
+
+    stage = _fresh()
     rank = 0
     for node in p.nodes[1:]:
         r = _STAGE_RANK.get(node.op)
         if r is None:
             raise PipelineError(f"unknown node op {node.op!r}")
         if node.op == "source":
-            raise PipelineError("more than one source")
+            raise PipelineError(f"{side}: more than one source")
         if is_array and (node.op in ("window", "join", "tee") or (
-                st["reduce"] is not None and r <= _STAGE_RANK["reduce"])):
+                stage["reduce"] is not None
+                and r <= _STAGE_RANK["reduce"])):
             raise PipelineError(_ARRAY_ONE_SHOT)
-        if node.op == "join":
-            raise not_ported("windowed joins", "Queue A #7 (joins)")
-        if node.op == "tee":
-            raise not_ported("tee fan-out", "Queue A #6 (multi-stage chains "
-                                            "and tee)")
         if sink_prefix is not None:
-            raise PipelineError("sink must be the last node")
-        if r < rank or (r == rank and node.op != "map"):
-            if st["reduce"] is not None and node.op in (
+            raise PipelineError(f"{side}: sink must be the last node")
+        if tee_node is not None:
+            raise PipelineError(f"{side}: tee is a terminal node — the "
+                                f"branches carry their own sinks and "
+                                f"continuations")
+        if node.op == "tee" and join_node is not None:
+            raise PipelineError("tee and join cannot combine in one "
+                                "pipeline (tee a downstream pipeline over "
+                                "the join output instead)")
+        if r < rank or (r == rank and node.op not in ("map",)):
+            # past this stage's reduce the chain may continue with a new
+            # stage; anything else is an ordering error
+            if stage["reduce"] is not None and node.op in (
                     "map", "key_by", "window", "reduce"):
-                raise not_ported("chains that continue past a reduce",
-                                 "Queue A #6 (multi-stage chains and tee)")
-            prev = [k for k, v in _STAGE_RANK.items() if v == rank][0]
-            raise PipelineError(f"{node.op!r} cannot follow a {prev!r} node "
-                                f"— {_ORDER_HINT}")
+                if not allow_stages:
+                    raise PipelineError(
+                        f"{side}: this chain ends at its reduce node")
+                if join_node is not None:
+                    raise PipelineError(
+                        "the chain cannot continue past a join (rank the "
+                        "join output in a downstream pipeline instead)")
+                _close(stage)
+                stage = _fresh()
+                rank = 0
+                r = _STAGE_RANK[node.op]
+            else:
+                raise PipelineError(
+                    f"{side}: {node.op!r} cannot follow a "
+                    f"{[k for k, v in _STAGE_RANK.items() if v == rank][0]!r}"
+                    f" node — {_ORDER_HINT}")
         rank = r
         if node.op == "map":
-            st["maps"].append(node.params["fn"])
+            stage["maps"].append(node.params["fn"])
         elif node.op == "key_by":
-            st["key_fn"] = node.params["fn"]
+            stage["key_fn"] = node.params["fn"]
         elif node.op == "window":
-            st["windowing"] = node.params["windowing"]
+            stage["windowing"] = node.params["windowing"]
         elif node.op == "reduce":
-            st["reduce"] = node.params
+            stage["reduce"] = node.params
         elif node.op == "top_k":
-            st["top"] = node.params
+            stage["top"] = node.params
+        elif node.op == "join":
+            if not allow_join:
+                raise PipelineError(f"{side}: nested joins are not "
+                                    f"supported")
+            join_node = node
+        elif node.op == "tee":
+            if not allow_tee:
+                raise PipelineError(f"{side}: tee is not allowed here")
+            if stage["reduce"] is None:
+                raise PipelineError(f"{side}: tee fans out a *reduced* "
+                                    f"stage ({_ORDER_HINT})")
+            tee_node = node
         elif node.op == "sink":
             sink_prefix = node.params["prefix"]
-    red = st["reduce"]
-    if red is None:
-        raise PipelineError(f"a pipeline needs a reduce node ({_ORDER_HINT})")
-    if is_array and len(st["maps"]) != 1:
-        raise PipelineError("array pipelines need exactly one map node "
-                            "(the device UDF)")
-    chain = _Chain(
-        source=source, transform=fuse_maps(st["maps"]),
-        key_fn=st["key_fn"] or _default_key, value_fn=_default_value,
-        windowing=st["windowing"], reduce_spec=red["spec"],
-        reduce_mode=red["mode"], top=st["top"],
-        options={k: red[k] for k in ("num_buckets", "n_slots")
-                 if red.get(k) is not None})
-    return chain, sink_prefix
+    if stage["top"] is not None and join_node is not None:
+        raise PipelineError("top_k and join cannot combine (rank the join "
+                            "output downstream instead)")
+    _close(stage)
+    if on is not None:
+        chains[-1] = dataclasses.replace(chains[-1], key_fn=on)
+    return chains, (join_node if allow_join else None), tee_node, sink_prefix
 
 
 def _check_windowing(w: Windowing, n_slots: int, lateness: float) -> None:
@@ -397,37 +545,37 @@ def _check_windowing(w: Windowing, n_slots: int, lateness: float) -> None:
             f"{need} for size={w.size}, slide={step}, lateness={lateness}")
 
 
-def _check_chain(chain: _Chain, *, n_slots: int, lateness: float) -> None:
-    if chain.windowing is None:
-        raise PipelineError("record pipelines need a window node before "
-                            "reduce (use Windowing.tumbling(...) with a "
-                            "large size for a single global window)")
-    if chain.reduce_mode == "group":
+def _check_reduce(chain: _Chain, *, in_join: bool) -> None:
+    spec, mode = chain.reduce_spec, chain.reduce_mode
+    if mode == "aggregate":
+        if not isinstance(spec, str) or spec not in AGGREGATE_KINDS:
+            raise PipelineError(f"aggregate reduce must be one of "
+                                f"{AGGREGATE_KINDS}, got {spec!r}")
+    elif mode == "group":
+        if in_join:
+            raise PipelineError("join sides must reduce in aggregate mode")
         raise not_ported("group-mode reduction", "Queue A #8 (group mode)")
-    if chain.reduce_mode != "aggregate":
-        raise PipelineError(f"unknown reduce mode {chain.reduce_mode!r}")
-    spec = chain.reduce_spec
-    if not isinstance(spec, str) or spec not in AGGREGATE_KINDS:
-        raise PipelineError(f"aggregate reduce must be one of "
-                            f"{AGGREGATE_KINDS}, got {spec!r}")
-    _check_windowing(chain.windowing, n_slots, lateness)
-    if chain.windowing.is_session and chain.top is not None:
-        raise PipelineError("top_k over session windows is meaningless "
-                            "(a session holds one key)")
+    else:
+        raise PipelineError(f"unknown reduce mode {mode!r}")
 
 
-def _stage_emit(chain: _Chain, num_buckets: int) -> tuple[EmitSpec, int, str]:
-    """The stage's emission spec + validated top-k parameters."""
-    if chain.top is None:
-        return EmitSpec("aggregate", aggregation=chain.reduce_spec), 0, "sum"
-    if chain.top["k"] > num_buckets:
-        raise PipelineError("top_k k exceeds the bucket space")
-    top_k = chain.top["k"]
-    rank_by = chain.top["by"] or chain.reduce_spec
-    if rank_by not in AGGREGATE_KINDS:
-        raise PipelineError(f"top_k ranks by one of {AGGREGATE_KINDS}")
-    return (EmitSpec("top_k", aggregation=chain.reduce_spec, k=top_k,
-                     rank_by=rank_by), top_k, rank_by)
+def _check_channels_disjoint(sides: "tuple[tuple[int, int], ...]",
+                             channels: int) -> None:
+    """Plans sharing one carry must claim non-overlapping [base, base+2)
+    channel pairs inside the carry's channel count."""
+    claimed: set[int] = set()
+    for base, width in sides:
+        span = set(range(base, base + width))
+        if base < 0 or base + width > channels:
+            raise PipelineError(
+                f"channel window [{base}, {base + width}) exceeds the "
+                f"carry's {channels} channels")
+        if claimed & span:
+            raise PipelineError(
+                f"channel window [{base}, {base + width}) overlaps another "
+                f"side's channels — plans sharing a carry must stay "
+                f"disjoint")
+        claimed |= span
 
 
 # ---------------------------------------------------------------------------
@@ -444,11 +592,36 @@ def _key_space_obj(key_space, num_buckets: int) -> KeySpace:
     return KeySpace.dense(num_buckets)
 
 
-def _side(chain: _Chain, compiled, num_buckets: int) -> SidePlan:
-    return SidePlan(name="main", source=chain.source,
+def _lower_side(chain: _Chain, name: str, *, num_buckets: int,
+                n_workers: int, n_slots: int, key_space, fanout: str,
+                backend: str, device, channels: int, channel_base: int,
+                carry_buckets: int = 0, top_k: int = 0,
+                rank_by: str = "sum") -> SidePlan:
+    """One record chain → its streaming plan on ``device``, folding into
+    channels ``[channel_base, channel_base + 2)`` of a ``channels``-wide
+    carry ``carry_buckets`` wide (0: the side's own key space)."""
+    ks = _key_space_obj(key_space, num_buckets)
+    w = chain.windowing
+    if w.is_session:
+        window = WindowSpec.session(w.gap, n_slots=n_slots)
+    else:
+        window = WindowSpec(size=w.size, slide=w.slide, n_slots=n_slots,
+                            fanout_on_device=fanout == "device")
+    carry = 0 if carry_buckets == ks.num_buckets else carry_buckets
+    if top_k:
+        reduce = ReduceSpec(mode="top_k", reduce_fn=rank_by, k=top_k,
+                            channels=channels, channel_base=channel_base,
+                            carry_buckets=carry)
+    else:
+        reduce = ReduceSpec("aggregate", channels=channels,
+                            channel_base=channel_base, carry_buckets=carry)
+    plan = ExecutionPlan(key_space=ks, reduce=reduce, n_workers=n_workers,
+                         window=window)
+    compiled = plan.compile(backend=backend, device=device)
+    return SidePlan(name=name, source=chain.source,
                     transform=chain.transform, key_fn=chain.key_fn,
                     value_fn=chain.value_fn, compiled=compiled,
-                    num_buckets=num_buckets)
+                    channel_base=channel_base, num_buckets=ks.num_buckets)
 
 
 def _lower_array(chain: _Chain, *, num_buckets: int, n_workers: int,
@@ -478,48 +651,97 @@ def _lower_array(chain: _Chain, *, num_buckets: int, n_workers: int,
     plan = ExecutionPlan(key_space=ks, reduce=reduce, n_workers=n_workers)
     compiled = plan.compile(chain.transform, backend=backend, device=device,
                             finalize=finalize)
-    stage = StagePlan(0, (_side(chain, compiled, num_buckets),), None,
-                      chain.reduce_mode, emit, num_buckets, n_slots,
-                      lateness)
+    side = SidePlan(name="main", source=chain.source,
+                    transform=chain.transform, key_fn=chain.key_fn,
+                    value_fn=chain.value_fn, compiled=compiled,
+                    num_buckets=num_buckets)
+    stage = StagePlan(0, (side,), None, chain.reduce_mode, emit,
+                      num_buckets, n_slots, lateness)
     return compiled, stage
 
 
-def _lower_windowed(chain: _Chain, *, num_buckets: int, n_workers: int,
-                    n_slots: int, key_space, lateness: float, fanout: str,
-                    backend: str, device):
-    """A windowed record chain → its streaming plan on ``device`` and the
-    stage that carries it."""
+def _stage_emit(chain: _Chain, num_buckets: int) -> tuple[EmitSpec, int, str]:
+    """One record stage's emission spec + validated top-k parameters."""
+    top_k, rank_by = 0, "sum"
+    if chain.top is not None:
+        if chain.reduce_mode != "aggregate":
+            raise PipelineError("top_k ranks an aggregate reduce")
+        if chain.top["k"] > num_buckets:
+            raise PipelineError("top_k k exceeds the bucket space")
+        top_k = chain.top["k"]
+        rank_by = chain.top["by"] or chain.reduce_spec
+        if rank_by not in AGGREGATE_KINDS:
+            raise PipelineError(f"top_k ranks by one of {AGGREGATE_KINDS}")
+        emit = EmitSpec("top_k", aggregation=chain.reduce_spec,
+                        k=top_k, rank_by=rank_by)
+    else:
+        emit = EmitSpec("aggregate", aggregation=chain.reduce_spec)
+    return emit, top_k, rank_by
+
+
+def _check_record_stage(chain: _Chain, *, name: str, n_slots: int,
+                        lateness: float) -> None:
+    """The per-stage validation shared by every record stage of the DAG —
+    run with the stage's *resolved* (possibly stage-local) options.  The
+    reference also requires ``num_buckets`` to divide by ``n_workers``;
+    the flat fold has no worker axis, so the port does not (ROADMAP
+    Queue A #11)."""
+    where = f"{name}: " if name else ""
+    if chain.windowing is None:
+        raise PipelineError(where + "record pipelines need a window node "
+                            "before reduce (use Windowing.tumbling(...) "
+                            "with a large size for a single global window)")
+    _check_windowing(chain.windowing, n_slots, lateness)
+    _check_reduce(chain, in_join=False)
+    if chain.windowing.is_session and chain.top is not None:
+        raise PipelineError("top_k over session windows is meaningless "
+                            "(a session holds one key)")
+
+
+def _stage_options(chain: _Chain, *, name: str, num_buckets: int,
+                   n_slots: int) -> tuple[int, int]:
+    """Resolve one stage's carry sizing: stage-local ``reduce(...,
+    num_buckets=, n_slots=)`` overrides win over the build-wide defaults;
+    both are validated here, per stage."""
     nb = chain.options.get("num_buckets", num_buckets)
     ns = chain.options.get("n_slots", n_slots)
-    if chain.options and isinstance(key_space, KeySpace):
-        raise PipelineError("stage-local options cannot combine with a "
-                            "KeySpace instance")
+    where = f"{name}: " if name else ""
     if nb < 1:
-        raise PipelineError("num_buckets must be >= 1")
+        raise PipelineError(where + "num_buckets must be >= 1")
     if ns < 2:
-        raise PipelineError("need >= 2 window slots (one closing, one open)")
-    _check_chain(chain, n_slots=ns, lateness=lateness)
-    emit, top_k, rank_by = _stage_emit(chain, nb)
-
-    ks = _key_space_obj(key_space, nb)
-    w = chain.windowing
-    if w.is_session:
-        window = WindowSpec.session(w.gap, n_slots=ns)
-    else:
-        window = WindowSpec(size=w.size, slide=w.slide, n_slots=ns,
-                            fanout_on_device=fanout == "device")
-    reduce = (ReduceSpec(mode="top_k", reduce_fn=rank_by, k=top_k)
-              if top_k else ReduceSpec("aggregate"))
-    plan = ExecutionPlan(key_space=ks, reduce=reduce, n_workers=n_workers,
-                         window=window)
-    compiled = plan.compile(backend=backend, device=device)
-    stage = StagePlan(0, (_side(chain, compiled, ks.num_buckets),), w,
-                      "aggregate", emit, ks.num_buckets, ns, lateness)
-    return compiled, stage
+        raise PipelineError(where + "need >= 2 window slots (one closing, "
+                            "one open)")
+    return int(nb), int(ns)
 
 
-def build_pipeline(p: Pipeline, *, num_buckets: int = 128,
-                   n_workers: int = 8, n_slots: int = 8,
+def _identity_boundary(src: _Chain, src_emit: EmitSpec, dst: _Chain) -> bool:
+    """True when the src → dst boundary passes every emitted key through
+    unchanged: an aggregate source stage with fixed windows feeding a
+    destination with no host transform and the default key.  On such a
+    boundary the destination's dictionary can register keys *eagerly*
+    (the moment the source first sees them), which keeps the id order
+    identical across handoff transports and closed in every checkpoint."""
+    return (src_emit.kind == "aggregate"
+            and not src.windowing.is_session
+            and dst.transform is None
+            and dst.key_fn is _default_key
+            and not dst.windowing.is_session)
+
+
+def _handoff_on_device(src: _Chain, src_emit: EmitSpec, dst: _Chain, *,
+                       key_space_str: str, fanout: str,
+                       handoff: str) -> bool:
+    """True when the src → dst boundary can re-key/re-window finalized
+    aggregates entirely on the device: a dense identity boundary under
+    the device fan-out wire.  Any host map/key_by between the stages takes
+    the host record path — the same records, materialized."""
+    return (handoff == "device" and fanout == "device"
+            and key_space_str == "dense"
+            and _identity_boundary(src, src_emit, dst))
+
+
+def build_pipeline(p: Pipeline, *, num_buckets=128, n_workers: int = 8,
+                   n_slots: int = 8,
                    key_space: "str | KeySpace" = "dense",
                    fanout: str = "device", allowed_lateness: float = 0.0,
                    backend: str = BACKEND, checkpoint_interval: int = 1,
@@ -527,21 +749,36 @@ def build_pipeline(p: Pipeline, *, num_buckets: int = 128,
                    job_id: str | None = None,
                    output_prefix: str | None = None,
                    device="cuda", finalize: bool = True,
-                   combine_fn=None) -> BuiltPipeline:
+                   combine_fn=None, handoff: str = "device") -> BuiltPipeline:
     """Validate ``p`` and lower it to a runnable ``BuiltPipeline`` whose
-    carry lives on ``device`` — ``"cuda"`` by default, which must exist
+    carries live on ``device`` — ``"cuda"`` by default, which must exist
     (pass ``device="cpu"`` to run the plain PyTorch versions on the CPU).
     ``key_space`` is ``"dense"`` / ``"hashed"`` or a ``KeySpace``
-    instance (passed to the plan verbatim); ``fanout`` picks the device
-    (one row per record) or host (one row per record × window) wire.  For
-    a windowed pipeline ``n_workers`` only caps a private pool's scale, as
-    in the reference: the flat fold has no worker axis (ROADMAP Queue A
-    #11).  An array pipeline takes ``n_workers`` shards; ``finalize`` and
-    ``combine_fn`` (``None``/``"pallas"``: the hash_combine kernel, or a
-    callable) shape its batch plan."""
+    instance (passed to the plans verbatim); ``fanout`` picks the device
+    (one row per record) or host (one row per record × window) wire.
+    ``num_buckets`` takes a ``(left, right)`` pair on a join to size the
+    two key spaces independently (dense only); the shared carry widens to
+    the larger side.  ``handoff`` picks the multi-stage boundary
+    transport: ``"device"`` re-keys/re-windows finalized aggregates on the
+    device where the boundary allows it, ``"host"`` always materializes
+    the records.  For a windowed pipeline ``n_workers`` only caps a
+    private pool's scale: the flat fold has no worker axis (ROADMAP Queue
+    A #11).  An array pipeline takes ``n_workers`` shards; ``finalize``
+    and ``combine_fn`` (``None``/``"pallas"``: the hash_combine kernel, or
+    a callable) shape its batch plan."""
+    side_buckets: tuple[int, int] | None = None
     if isinstance(num_buckets, (tuple, list)):
-        raise not_ported("per-side num_buckets (joins)", "Queue A #7 (joins)")
+        if len(num_buckets) != 2:
+            raise PipelineError("num_buckets takes an int or a "
+                                "(left, right) pair")
+        side_buckets = (int(num_buckets[0]), int(num_buckets[1]))
+        if min(side_buckets) < 1:
+            raise PipelineError("per-side num_buckets must be >= 1")
+        num_buckets = max(side_buckets)
     if isinstance(key_space, KeySpace):
+        if side_buckets is not None:
+            raise PipelineError("per-side num_buckets cannot combine with "
+                                "a KeySpace instance")
         num_buckets = key_space.num_buckets
         key_space_str = key_space.mode
     elif key_space in ("dense", "hashed"):
@@ -551,33 +788,236 @@ def build_pipeline(p: Pipeline, *, num_buckets: int = 128,
                             "KeySpace")
     if fanout not in ("device", "host"):
         raise PipelineError("fanout must be 'device' or 'host'")
+    if handoff not in ("device", "host"):
+        raise PipelineError("handoff must be 'device' or 'host'")
     if checkpoint_interval < 1:
         raise PipelineError("checkpoint_interval must be >= 1")
-    chain, sink_prefix = _parse_chain(p)
+    chains, join_node, tee_node, sink_prefix = _parse_chain(
+        p, side="pipeline", allow_join=True, allow_stages=True,
+        allow_tee=True)
+    chain = chains[0]
+    job_id = job_id or "p" + uuid.uuid4().hex[:11]
+    output_prefix = output_prefix or sink_prefix or "stream-output/"
+    batch_records = batch_records or chain.source.batch_records
+    if side_buckets is not None and join_node is None:
+        raise PipelineError("per-side num_buckets only applies to joins")
+    common = dict(n_workers=n_workers, n_slots=n_slots,
+                  batch_records=batch_records, key_space=key_space_str,
+                  fanout=fanout, allowed_lateness=allowed_lateness,
+                  checkpoint_interval=checkpoint_interval,
+                  output_prefix=output_prefix, job_id=job_id,
+                  backend=backend, handoff=handoff)
+
+    # -- array (pure batch) pipelines ----------------------------------------
     if chain.source.kind == "array":
         compiled, stage = _lower_array(
             chain, num_buckets=num_buckets, n_workers=n_workers,
             n_slots=n_slots, key_space=key_space, lateness=allowed_lateness,
             backend=backend, finalize=finalize, combine_fn=combine_fn,
             device=device)
-    elif combine_fn is not None:
+        built = BuiltPipeline(stages=(stage,), num_buckets=num_buckets,
+                              device=compiled.device, batch_plan=compiled,
+                              **common)
+        from ..analysis.diagnostics import warn_diagnostics
+        warn_diagnostics(built.check())
+        return built
+    if combine_fn is not None:
         raise PipelineError("combine_fn shapes an array pipeline's batch "
                             "plan; the streaming fold is its own combiner")
-    else:
-        compiled, stage = _lower_windowed(
-            chain, num_buckets=num_buckets, n_workers=n_workers,
-            n_slots=n_slots, key_space=key_space, lateness=allowed_lateness,
-            fanout=fanout, backend=backend, device=device)
-    built = BuiltPipeline(
-        stages=(stage,), num_buckets=stage.num_buckets, n_workers=n_workers,
-        n_slots=n_slots, batch_records=batch_records or
-        chain.source.batch_records, key_space=key_space_str, fanout=fanout,
-        allowed_lateness=allowed_lateness,
-        checkpoint_interval=checkpoint_interval,
-        output_prefix=output_prefix or sink_prefix or "stream-output/",
-        job_id=job_id or "p" + uuid.uuid4().hex[:11],
-        device=compiled.device,
-        batch_plan=compiled if stage.window is None else None)
-    from ..analysis.diagnostics import warn_diagnostics
-    warn_diagnostics(built.check())
-    return built
+
+    # -- record pipelines: assemble the stage DAG -----------------------------
+    stages: list[StagePlan] = []
+    side_chains: list[tuple[_Chain, ...]] = []   # per stage, its side chains
+    raw_edges: list[tuple[int, int, int]] = []   # (src, dst, dst_side)
+
+    def _add_stage(ch: _Chain, *, name: str, lateness: float,
+                   prefix: str | None) -> int:
+        idx = len(stages)
+        nb, ns = _stage_options(ch, name=name, num_buckets=num_buckets,
+                                n_slots=n_slots)
+        if ch.options and isinstance(key_space, KeySpace):
+            raise PipelineError("stage-local options cannot combine with a "
+                                "KeySpace instance (it fixes one bucket "
+                                "width for the whole graph)")
+        _check_record_stage(ch, name=name, n_slots=ns, lateness=lateness)
+        emit, top_k, rank_by = _stage_emit(ch, nb)
+        side = _lower_side(ch, name or "main", num_buckets=nb,
+                           n_workers=n_workers, n_slots=ns,
+                           key_space=key_space, fanout=fanout,
+                           backend=backend, device=device, channels=2,
+                           channel_base=0, top_k=top_k, rank_by=rank_by)
+        stages.append(StagePlan(idx, (side,), ch.windowing, ch.reduce_mode,
+                                emit, nb, ns, lateness,
+                                output_prefix=prefix))
+        side_chains.append((ch,))
+        return idx
+
+    def _lower_seq(seq, tee, sink, *, upstream: int | None,
+                   label: str) -> tuple[int, int]:
+        """Lower one linear chain sequence — fed by stage ``upstream``
+        through the carry, or by an external source when ``upstream`` is
+        None — plus its trailing tee fan-out (each branch recursing here).
+        Returns the (first, last) stage indices of the linear part."""
+        prev = upstream
+        first = last = None
+        for j, ch in enumerate(seq):
+            terminal = j == len(seq) - 1 and tee is None
+            name = f"{label}stage {j + 1}" if (label or len(seq) > 1) else ""
+            # stages fed through the carry see finalized windows in
+            # watermark order — no out-of-order slack needed
+            lateness = allowed_lateness if prev is None else 0.0
+            idx = _add_stage(ch, name=name, lateness=lateness,
+                             prefix=sink if terminal else None)
+            if prev is not None:
+                raw_edges.append((prev, idx, 0))
+            prev = idx
+            last = idx
+            if first is None:
+                first = idx
+        if tee is not None:
+            for bi, bp in enumerate(tee.params["branches"]):
+                blabel = f"{label}branch {bi + 1}"
+                bchains, _, btee, bsink = _parse_chain(
+                    bp, side=blabel, allow_join=False, allow_stages=True,
+                    allow_tee=True)
+                _lower_seq(bchains, btee, bsink, upstream=prev,
+                           label=blabel + " ")
+        return first, last
+
+    def _finish(inputs: tuple[tuple[int, int], ...],
+                carry_width: int) -> BuiltPipeline:
+        """Shared tail of every record lowering: derive each edge's
+        transport, validate terminal sinks and session placement, and
+        assemble the built program."""
+        edges = []
+        for src, dst, dst_side in raw_edges:
+            src_ch = side_chains[src][0]
+            dst_ch = side_chains[dst][dst_side]
+            eager = _identity_boundary(src_ch, stages[src].emit, dst_ch)
+            dev = eager and _handoff_on_device(
+                src_ch, stages[src].emit, dst_ch,
+                key_space_str=key_space_str, fanout=fanout, handoff=handoff)
+            edges.append(StageEdge(src, dst, dst_side, dev, eager))
+        srcs: dict[int, list[StageEdge]] = {}
+        for e in edges:
+            srcs.setdefault(e.src, []).append(e)
+        for si, es in srcs.items():
+            # the stage counts as eager/device when every out-edge is
+            # (per-edge truth lives on the edges)
+            stages[si] = dataclasses.replace(
+                stages[si], eager_boundary=all(x.eager for x in es),
+                handoff_device=all(x.device for x in es))
+        if len(stages) > 1:
+            for st in stages:
+                if st.is_session:
+                    raise PipelineError(
+                        "session windows run in a single-stage pipeline "
+                        "only: sessions finalize out of start order, so "
+                        "wiring them into a stage DAG would break the "
+                        "deterministic batch ↔ streaming replay")
+        finals = [i for i in range(len(stages)) if i not in srcs]
+        if len(finals) > 1:
+            prefixes = [stages[i].output_prefix for i in finals]
+            if any(not pfx for pfx in prefixes):
+                raise PipelineError(
+                    "a fan-out pipeline writes several output streams: "
+                    "every terminal branch needs its own .sink(prefix)")
+            # output keys normalize the trailing slash away, so the
+            # distinctness check must too ("out" and "out/" collide)
+            normed = [pfx.rstrip("/") for pfx in prefixes]
+            if len(set(normed)) != len(normed):
+                raise PipelineError("terminal branches must sink to "
+                                    "distinct prefixes (two branches share "
+                                    "one, so their windows would collide)")
+        else:
+            # single output stream: the pipeline-level prefix (which the
+            # build option may override) stays authoritative
+            stages[finals[0]] = dataclasses.replace(
+                stages[finals[0]], output_prefix=None)
+        built = BuiltPipeline(
+            stages=tuple(stages), num_buckets=carry_width,
+            device=stages[0].sides[0].compiled.device, edges=tuple(edges),
+            inputs=inputs, **common)
+        from ..analysis.diagnostics import warn_diagnostics
+        warn_diagnostics(built.check())
+        return built
+
+    # -- joins (either side may be a multi-stage chain) -----------------------
+    if join_node is not None:
+        on = join_node.params["on"]
+        lchain = chains[-1]
+        if on is not None:
+            lchain = dataclasses.replace(lchain, key_fn=on)
+        rchains, _, rtee, rsink = _parse_chain(
+            join_node.right, side="right", allow_join=False,
+            allow_stages=True, on=on)
+        rchain = rchains[-1]
+        if rsink is not None or rtee is not None or rchain.top is not None:
+            raise PipelineError("the join's right side ends at its reduce "
+                                "node")
+        if rchains[0].source.kind == "array":
+            raise PipelineError("join sides are record pipelines")
+        if lchain.windowing is None or rchain.windowing is None:
+            raise PipelineError("record pipelines need a window node before "
+                                "reduce (use Windowing.tumbling(...) with a "
+                                "large size for a single global window)")
+        if rchain.windowing != lchain.windowing:
+            raise PipelineError("join sides must share one window "
+                                f"({lchain.windowing} != {rchain.windowing})")
+        if lchain.windowing.is_session:
+            raise PipelineError("session windows cannot join (window "
+                                "bounds are per-key)")
+        if fanout != "device":
+            raise PipelineError("joins run with fanout='device'")
+        _check_reduce(lchain, in_join=True)
+        _check_reduce(rchain, in_join=True)
+        if lchain.options or rchain.options:
+            raise PipelineError("stage-local options cannot size a join's "
+                                "final stage — size its key spaces with "
+                                "build(num_buckets=(left, right))")
+        lb, rb = side_buckets or (num_buckets, num_buckets)
+        if key_space_str == "hashed" and lb != rb:
+            raise PipelineError(
+                "hashed joins need symmetric num_buckets: both sides must "
+                "hash keys into the same bucket space to match")
+        # the join stage itself still sees raw external events on any
+        # single-stage side, so it keeps the out-of-order slack; a side fed
+        # through the carry arrives in watermark order
+        jlat = allowed_lateness if (len(chains) == 1 or len(rchains) == 1) \
+            else 0.0
+        _check_windowing(lchain.windowing, n_slots, jlat)
+        lfirst = llast = rfirst = rlast = None
+        if len(chains) > 1:
+            lfirst, llast = _lower_seq(chains[:-1], None, None,
+                                       upstream=None, label="left ")
+        if len(rchains) > 1:
+            rfirst, rlast = _lower_seq(rchains[:-1], None, None,
+                                       upstream=None, label="right ")
+        jidx = len(stages)
+        layout = ((0, 2), (2, 2))       # per-side [sum, count] channel pairs
+        _check_channels_disjoint(layout, channels=4)
+        shared = dict(n_workers=n_workers, n_slots=n_slots,
+                      key_space=key_space, fanout=fanout, backend=backend,
+                      device=device, channels=4, carry_buckets=num_buckets)
+        sides = (_lower_side(lchain, "left", num_buckets=lb,
+                             channel_base=layout[0][0], **shared),
+                 _lower_side(rchain, "right", num_buckets=rb,
+                             channel_base=layout[1][0], **shared))
+        emit = EmitSpec("join", join_aggs=(lchain.reduce_spec,
+                                           rchain.reduce_spec))
+        stages.append(StagePlan(jidx, sides, lchain.windowing, "aggregate",
+                                emit, num_buckets, n_slots, jlat,
+                                output_prefix=sink_prefix))
+        side_chains.append((lchain, rchain))
+        if llast is not None:
+            raw_edges.append((llast, jidx, 0))
+        if rlast is not None:
+            raw_edges.append((rlast, jidx, 1))
+        inputs = ((jidx, 0) if lfirst is None else (lfirst, 0),
+                  (jidx, 1) if rfirst is None else (rfirst, 0))
+        return _finish(inputs, num_buckets)
+
+    # -- a linear chain (split at each reduce boundary) + optional tee --------
+    first, _last = _lower_seq(chains, tee_node, sink_prefix, upstream=None,
+                              label="")
+    return _finish(((first, 0),), stages[0].num_buckets)

@@ -35,6 +35,24 @@ The device state is the carry, 8 slots × 10,000 segments × 2 channels ×
 4 B ≈ 0.64 MB — small by nature, as segment statistics are; what is at
 full size is the stream (about 330,000 live (report, window) pairs per
 micro-batch).
+
+Two more programs read the same reports, with numpy oracles:
+
+* ``congestion_chain`` — a stage DAG.  Stage 1 counts reports per segment
+  per minute (``tumbling(60)``, ``count``) and tees into (a) a device
+  edge: the ``sliding(300, 60)`` ``mean`` of the per-minute counts, then
+  ``top_k(100)`` — the most congested segments of the last 5 minutes —
+  and (b) a host edge: ``key_by`` the expressway of the segment label,
+  ``tumbling(300)`` ``sum`` — vehicles reported per expressway.
+* ``toll_inputs_join`` — a windowed join, per segment and minute
+  (``tumbling(60)``), of the mean speed from one log with the report
+  count from a second log (the same reports under another prefix): the
+  pair a Linear Road-style toll check reads.  Not the benchmark's toll
+  rule, whose LAV spans 5 minutes while its vehicle count spans 1 (one
+  join has one window).
+
+Every value they fold is integer-valued (counts, integer speeds), so the
+card's sinks equal the plain fold's byte for byte in any atomic order.
 """
 
 from __future__ import annotations
@@ -56,6 +74,10 @@ JITTER_SIGMA = 0.5
 
 #: the full configuration the chip smoke drives
 FULL = {"n_xways": 50, "n_vehicles": 50_000, "minutes": 10}
+
+MINUTE = 60.0               # per-minute statistics (counts, toll inputs)
+TOP_K = 100                 # congestion_chain: most congested segments
+XWAY_BUCKETS = 64           # congestion_chain branch (b): >= 50 xways
 
 
 def num_segments(n_xways: int) -> int:
@@ -159,4 +181,118 @@ def lav_oracle(ts: np.ndarray, seg_id: np.ndarray, speed: np.ndarray
         widx, key = divmod(int(f), n_keys)
         mean = np.float32(sums[f]) / np.float32(counts[f])
         out[(widx + w0) * WINDOW_SLIDE][segment_label(key)] = float(mean)
+    return dict(out)
+
+
+# ---------------------------------------------------------------------------
+# congestion_chain: a tee'd stage DAG over the reports
+# ---------------------------------------------------------------------------
+
+def xway_of(rec) -> str:
+    """The expressway of a ``(ts, "xway:dir:seg", value)`` record."""
+    return rec[1].split(":", 1)[0]
+
+
+def congestion_chain(prefix: str, top_sink: str = "congested/",
+                     xway_sink: str = "xway-volume/") -> Pipeline:
+    """Reports per segment per minute, teed into (a) the ``TOP_K``
+    segments by mean per-minute count over sliding 5-minute windows (an
+    identity boundary: a device edge) and (b) reports per expressway per
+    5 minutes (a ``key_by`` boundary: a host edge)."""
+    counts = (Pipeline.from_source(prefix=prefix,
+                                   batch_records=BATCH_RECORDS)
+              .key_by().window(Windowing.tumbling(MINUTE)).reduce("count"))
+    return counts.tee(
+        Pipeline.branch()
+        .window(Windowing.sliding(WINDOW_SIZE, WINDOW_SLIDE))
+        .reduce("mean").top_k(TOP_K).sink(top_sink),
+        Pipeline.branch().key_by(xway_of)
+        .window(Windowing.tumbling(WINDOW_SIZE))
+        .reduce("sum", num_buckets=XWAY_BUCKETS).sink(xway_sink))
+
+
+def congestion_oracle(ts: np.ndarray, seg_id: np.ndarray
+                      ) -> tuple[dict[float, list], dict[float, dict]]:
+    """numpy oracle of ``congestion_chain``: ``(top, volume)`` with
+    ``top`` window start → ``[(label, mean), ...]`` (rank order) and
+    ``volume`` window start → {xway label: reports}.
+
+    A segment's value in a sliding window is the float32 mean of its
+    per-minute report counts over the minutes of the window in which it
+    reported.  Ties rank by the segment's first appearance in the log:
+    the ranking stage's key ids are assigned in that order (its
+    dictionary registers a key when the first stage first sees it), and
+    ``stages.top_k_buckets`` breaks ties toward the lower id.  Assumes no
+    report arrives later than the allowed lateness."""
+    n_keys = int(seg_id.max()) + 1
+    minute = np.floor(ts / MINUTE).astype(np.int64)
+    m0 = int(minute.min())
+    per_min = np.bincount((minute - m0) * n_keys + seg_id,
+                          minlength=(int(minute.max()) - m0 + 1) * n_keys
+                          ).reshape(-1, n_keys).astype(np.float64)
+    first = np.full(n_keys, len(seg_id))
+    uniq, idx = np.unique(seg_id, return_index=True)
+    first[uniq] = idx
+    fanout = int(np.ceil(WINDOW_SIZE / WINDOW_SLIDE))
+    per = int(WINDOW_SLIDE // MINUTE)       # minutes a slide (1)
+    top: dict[float, list] = {}
+    n_min = per_min.shape[0]
+    for w in range(m0 // per - fanout + 1, (m0 + n_min - 1) // per + 1):
+        lo, hi = w * per - m0, w * per - m0 + fanout * per
+        block = per_min[max(lo, 0):max(min(hi, n_min), 0)]
+        if block.size == 0 or not block.any():
+            continue
+        sums = block.sum(axis=0).astype(np.float32)
+        cnt = (block > 0).sum(axis=0).astype(np.float32)
+        keys = np.nonzero(cnt)[0]
+        means = sums[keys] / cnt[keys]
+        order = np.lexsort((first[keys], -means))[:TOP_K]
+        top[w * WINDOW_SLIDE] = [(segment_label(keys[i]), float(means[i]))
+                                 for i in order]
+    xway = seg_id // (2 * SEGMENTS_PER_DIRECTION)
+    win = np.floor(minute * MINUTE / WINDOW_SIZE).astype(np.int64)
+    volume: dict[float, dict] = defaultdict(dict)
+    n_x = int(xway.max()) + 1
+    w0 = int(win.min())
+    flat = np.bincount((win - w0) * n_x + xway)
+    for f in np.nonzero(flat)[0]:
+        w, x = divmod(int(f), n_x)
+        volume[(w + w0) * WINDOW_SIZE][str(x)] = float(flat[f])
+    return top, dict(volume)
+
+
+# ---------------------------------------------------------------------------
+# toll_inputs_join: mean speed ⋈ report count per segment per minute
+# ---------------------------------------------------------------------------
+
+def toll_inputs_join(speed_prefix: str, count_prefix: str,
+                     sink: str = "toll-inputs/") -> Pipeline:
+    """Per segment and minute, the mean speed (from ``speed_prefix``)
+    joined with the report count (from ``count_prefix``)."""
+    speeds = (Pipeline.from_source(prefix=speed_prefix,
+                                   batch_records=BATCH_RECORDS)
+              .key_by().window(Windowing.tumbling(MINUTE)).reduce("mean"))
+    volume = (Pipeline.from_source(prefix=count_prefix,
+                                   batch_records=BATCH_RECORDS)
+              .key_by().window(Windowing.tumbling(MINUTE)).reduce("count"))
+    return speeds.join(volume).sink(sink)
+
+
+def toll_inputs_oracle(ts: np.ndarray, seg_id: np.ndarray,
+                       speed: np.ndarray) -> dict[float, dict[str, list]]:
+    """numpy oracle of ``toll_inputs_join`` over one log written under
+    both prefixes: window start → {segment label: [mean speed, reports]},
+    the mean as the float32 quotient the coordinator emits."""
+    n_keys = int(seg_id.max()) + 1
+    minute = np.floor(ts / MINUTE).astype(np.int64)
+    m0 = int(minute.min())
+    flat = (minute - m0) * n_keys + seg_id
+    sums = np.bincount(flat, weights=speed)
+    counts = np.bincount(flat)
+    out: dict[float, dict[str, list]] = defaultdict(dict)
+    for f in np.nonzero(counts)[0]:
+        m, key = divmod(int(f), n_keys)
+        mean = np.float32(sums[f]) / np.float32(counts[f])
+        out[(m + m0) * MINUTE][segment_label(key)] = [float(mean),
+                                                      int(counts[f])]
     return dict(out)

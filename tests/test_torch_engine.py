@@ -149,9 +149,6 @@ def test_unported_shapes_raise_not_implemented():
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             ExecutionPlan(ks, ReduceSpec(), W, ws).compile(backend=backend,
                                                            device="cpu")
-    compiled = ExecutionPlan(ks, ReduceSpec(), W, ws).compile(device="cpu")
-    with pytest.raises(NotImplementedError, match="handoff"):
-        compiled.handoff_rows(None, 0, None, 0, 1, "sum", 8)
     with pytest.raises(ValueError, match="map_fn"):
         ExecutionPlan(ks, ReduceSpec(), W, ws).compile(lambda s: s,
                                                        device="cpu")

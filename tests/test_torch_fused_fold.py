@@ -202,3 +202,118 @@ def test_cuda_kernel_matches_plain_version(cuda_device):
         torch.cuda.synchronize()
         assert ops.fold.launches == before + 1
         assert torch.equal(got_c, want_c) and torch.equal(got_s, want_s)
+
+
+# ---------------------------------------------------------------------------
+# The join and handoff paths: a carry wider than the key space, two
+# channel pairs of one carry, and rows built by the carry handoff
+# ---------------------------------------------------------------------------
+
+WIDE = NB + 7       # a join's shared carry, wider than this side's keys
+
+
+def _side_kw(kind, base, carry_buckets=WIDE):
+    return dict(fanout=FANOUT, n_slots=N_SLOTS, num_buckets=NB,
+                carry_buckets=carry_buckets, channel_base=base,
+                hashed=False, host_wire=False, kind=kind)
+
+
+@pytest.mark.parametrize("kind", ["sum", "count"])
+def test_plain_fold_wider_carry_matches_reference(kind):
+    """``carry_buckets > num_buckets`` (a join side narrower than the
+    shared carry): the plain fold equals the reference's oracle and its
+    Pallas kernel, and rows past the side's key space stay untouched."""
+    rng = np.random.default_rng(29)
+    rows = _rows(rng, 400, host_wire=False, keymax=NB)
+    carry = _carry(rng, N_SLOTS * WIDE, 4, kind)
+    for base in (0, 2):
+        kw = _side_kw(kind, base)
+        want_c, want_s = jax_fold_ref(jnp.asarray(rows), jnp.asarray(carry),
+                                      2, **kw)
+        pal_c, _ = fused_streaming_fold(jnp.asarray(rows),
+                                        jnp.asarray(carry), 2, block_n=128,
+                                        interpret=True, **kw)
+        got_c, got_s = fused_streaming_fold_ref(
+            torch.from_numpy(rows), torch.from_numpy(carry), 2, **kw)
+        assert np.array_equal(got_c.numpy(), np.asarray(want_c))
+        assert np.array_equal(got_c.numpy(), np.asarray(pal_c))
+        assert got_s.tolist() == np.asarray(want_s).tolist()
+        past = got_c.reshape(N_SLOTS, WIDE, 4)[:, NB:]
+        assert torch.equal(past, torch.from_numpy(carry).reshape(
+            N_SLOTS, WIDE, 4)[:, NB:])
+
+
+def _join_rows(rng, device):
+    rows = [torch.from_numpy(_rows(rng, 5000, host_wire=False,
+                                   keymax=NB)).to(device) for _ in range(2)]
+    carry = torch.from_numpy(_carry(rng, N_SLOTS * WIDE, 4, "sum")).to(device)
+    return rows, carry
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["sum", "count"])
+def test_cuda_wider_carry_matches_plain_version(cuda_device, kind):
+    """On the card: ``carry_buckets > num_buckets`` at both channel
+    bases, the kernel against its plain version — exact."""
+    rng = np.random.default_rng(31)
+    (rows, _), carry = _join_rows(rng, cuda_device)
+    for base in (0, 2):
+        kw = _side_kw(kind, base)
+        want_c, want_s = fused_streaming_fold_ref(rows, carry, 2, **kw)
+        got_c, got_s = ops.fold(rows, carry.clone(), 2, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got_c, want_c) and torch.equal(got_s, want_s)
+
+
+@pytest.mark.cuda
+def test_cuda_two_sides_share_one_carry(cuda_device):
+    """On the card: a 4-channel carry folded at base 0, then at base 2
+    (a join's left then right side), each against the plain version; the
+    second fold leaves channels 0-1 exactly as the first left them."""
+    rng = np.random.default_rng(37)
+    (left, right), carry = _join_rows(rng, cuda_device)
+    want, _ = fused_streaming_fold_ref(left, carry, 2, **_side_kw("sum", 0))
+    want, want_s = fused_streaming_fold_ref(right, want, 2,
+                                            **_side_kw("count", 2))
+    got = carry.clone()
+    before = ops.fold.launches
+    got, _ = ops.fold(left, got, 2, **_side_kw("sum", 0))
+    after_left = got[:, :2].clone()
+    got, got_s = ops.fold(right, got, 2, **_side_kw("count", 2))
+    torch.cuda.synchronize()
+    assert ops.fold.launches == before + 2
+    assert torch.equal(got, want) and torch.equal(got_s, want_s)
+    assert torch.equal(got[:, :2], after_left)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["count", "sum", "mean"])
+def test_cuda_fold_of_handoff_rows(cuda_device, kind):
+    """On the card: rows built there by ``carry_handoff_rows`` (relabelled
+    keys with unassigned ``-1`` buckets, a re-windowed span, invalid
+    padding past the source's buckets) fold through the kernel as through
+    the plain version, and equal the rows built on the CPU."""
+    rng = np.random.default_rng(41)
+    agg = np.zeros((NB, 2), np.float32)
+    hit = rng.random(NB) > 0.3
+    agg[hit, 0] = rng.integers(0, 90, hit.sum())
+    agg[hit, 1] = rng.integers(1, 9, hit.sum())
+    # a dictionary relabels one-to-one, so each carry cell takes at most
+    # one row: even a real-valued mean folds exactly in any atomic order
+    relabel = rng.permutation(NB).astype(np.int32)
+    relabel[rng.random(NB) < 0.2] = -1
+    args = (7, 3, kind, 3 * NB)
+    rows = stages.carry_handoff_rows(torch.from_numpy(agg).to(cuda_device),
+                                     torch.from_numpy(relabel).to(
+                                         cuda_device), *args)
+    cpu = stages.carry_handoff_rows(torch.from_numpy(agg),
+                                    torch.from_numpy(relabel), *args)
+    assert torch.equal(rows.cpu(), cpu) and not cpu[NB:].any()
+    carry = torch.zeros(N_SLOTS * NB, 2, device=cuda_device)
+    kw = dict(fanout=FANOUT, n_slots=N_SLOTS, num_buckets=NB,
+              carry_buckets=NB)
+    want_c, want_s = fused_streaming_fold_ref(rows, carry, 5, **kw)
+    got_c, got_s = ops.fold(rows, carry.clone(), 5, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got_c, want_c) and torch.equal(got_s, want_s)
+    assert int(got_s[1]) > 0

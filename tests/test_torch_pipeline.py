@@ -225,16 +225,18 @@ def test_n_workers_does_not_shape_the_fold(fanout, n_workers):
 
 
 def test_unported_pipeline_shapes_raise():
+    """Group mode is the one pipeline shape still unported; joins, tee
+    and chains past a reduce lower to stage DAGs (``test_torch_dag.py``,
+    ``test_torch_join.py`` hold them against the reference)."""
     src = Pipeline.from_source(records=_events(n=10))
     chain = src.key_by().window(10.0).reduce("sum")
-    with pytest.raises(NotImplementedError, match="joins"):
-        chain.join(chain).build(device="cpu")
-    with pytest.raises(NotImplementedError, match="tee"):
-        chain.tee(Pipeline.branch().window(50.0).reduce("sum").sink("a/"),
-                  Pipeline.branch().window(50.0).reduce("sum").sink("b/")
-                  ).build(device="cpu")
-    with pytest.raises(NotImplementedError, match="multi-stage"):
-        chain.key_by().window(50.0).reduce("sum").build(device="cpu")
+    assert chain.join(chain).build(device="cpu").is_join
+    teed = chain.tee(Pipeline.branch().window(50.0).reduce("sum").sink("a/"),
+                     Pipeline.branch().window(50.0).reduce("sum").sink("b/")
+                     ).build(device="cpu")
+    assert len(teed.stages) == 3 and len(teed.edges) == 2
+    assert chain.key_by().window(50.0).reduce("sum").build(
+        device="cpu").is_multistage
     with pytest.raises(NotImplementedError, match="group mode"):
         src.key_by().window(10.0).reduce("median", mode="group",
                                          capacity=8).build(device="cpu")
