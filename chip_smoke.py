@@ -261,8 +261,9 @@ card, phase by phase; any mismatch raises and the script exits non-zero:
    stages.  A second card run under one torch.profiler session puts each
    device-edge handoff between two synchronizes in its own
    ``record_function`` range and fails on any device-to-host copy (a
-   ``Memcpy DtoH`` record) in those windows, on any host read of a tensor
-   there, or when the windows hold no device record at all.
+   ``Memcpy DtoH`` record) launched from those ranges (matched to the
+   CUDA calls made inside them by correlation id), on any host read of
+   a tensor there, or when the ranges launched no device record at all.
    Prints records/s, the folds per stage, the device edge's host time
    (first run) and device time (second run).
 18. A windowed join on the card: ``toll_inputs_join`` — per segment and
@@ -275,6 +276,38 @@ card, phase by phase; any mismatch raises and the script exits non-zero:
    fold steps.  Prints records/s and the (segment, minute) pairs under 40
    mph with more than 50 reports.  Both phases' times are host times
    unless said otherwise.
+
+19. Group mode on a stream: ``segment_median_pipeline`` (see
+   ``src/repro_torch/workloads/linear_road.py``) over phase 3's 1,000,000
+   reports — the median speed per segment (10,000 keys) over
+   ``sliding(300, 60)``, ``reduce(median_reduce, mode="group",
+   capacity=2**17)``, 8 workers, 8 slots: every report of a window is
+   buffered on the card (an 8 x 8 x 2**17 record carry, 67 MB) and the
+   median runs over each segment's full list when the window finalizes.
+   No record may be dropped past capacity and no pair may be late; the
+   sinks must equal the ``device="cpu"`` build byte for byte and a numpy
+   median oracle (integer speeds: the medians are exact).  Prints
+   records/s, the host time of the folds (``step``) and of the
+   finalizations (``finalize_slot``), their device time (a second card
+   run under torch.profiler, each call between two synchronizes, which
+   must emit the same sinks; the device records each call launched),
+   and the carry's bytes.
+20. The combiner-off word count on the card: ``wordcount-hibench-large``
+   (phase 6's 2**28 tokens, 8 workers) through ``group_pipeline`` —
+   ``reduce("sum", mode="group", capacity=C)``, every token through the
+   grouping shuffle to its word's partition — with C sized from the
+   shards (``group_capacity``) so nothing drops.  Three runs from
+   device-resident shards, each equal to the ``np.bincount`` oracle and
+   to phase 6b's ``hash_combine`` counts exactly, with 0 ``hash_combine``
+   launches; prints their median wall against phase 6b's (the combiner
+   on, the same shards on the card) and the peak device memory.  Then a
+   real-valued witness: worker 0's sorted tokens with values uniform in
+   [0, 1) through ``segment_reduce("sum")`` on the card and on the CPU —
+   how many of the 1,000 sums differ bit-wise, and the largest relative
+   difference, which must stay within ``REAL_SUM_RTOL`` (1e-4).
+   Group mode has no kernel in either package (the reference refuses
+   ``backend="pallas"`` for group plans), so phases 19-20 add no entry
+   to the kernels line.
 
 Before the last line it prints one JSON object ``{"kernels": [...]}``
 (per kernel: launches on its main path, error, kernel / plain / bound /
@@ -300,6 +333,7 @@ import statistics
 import subprocess
 import sys
 import time
+from contextlib import nullcontext
 
 import numpy as np
 
@@ -939,9 +973,10 @@ def _timed_run(torch, built, data) -> tuple[float, object]:
     return time.perf_counter() - t0, out
 
 
-def phase_wordcount(torch, hc, wc, shards) -> int:
+def phase_wordcount(torch, hc, wc, shards) -> tuple:
     """Phase 6b: wordcount-hibench-large end to end on the card.  Returns
-    hash_combine's launches during the run."""
+    hash_combine's launches during the run, the counts (on the host) and
+    the median wall of the runs from device-resident shards."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     n = shards.shape[0] * shards.shape[1]
@@ -1007,7 +1042,7 @@ def phase_wordcount(torch, hc, wc, shards) -> int:
           flush=True)
     for ev in sorted(events, key=_device_us, reverse=True)[:8]:
         print(f"  device {_device_us(ev) / 1e3:9.3f} ms  {ev.key[:90]}")
-    return launches
+    return launches, counts.cpu(), statistics.median(dev_walls)
 
 
 def phase_hashed(torch, hc, wc) -> None:
@@ -2418,6 +2453,10 @@ PAPER_BYTES = 16 * MB
 PAPER_VOCAB = 5000
 #: phase 16: the service's log (phase 3's), then two more minutes appended
 SERVICE_APPEND_MINUTES = 2
+#: phase 20: real-valued float32 segment sums, card against the CPU's left
+#: fold, about 33,500 terms a key: rounding error grows like sqrt(m) ulp
+#: (~1e-5 of the sum at this m), so 1e-4 leaves a 10x margin
+REAL_SUM_RTOL = 1e-4
 
 
 def paper_corpus(n_bytes: int, seed: int) -> str:
@@ -2757,6 +2796,31 @@ def _drive(program, store):
 EDGE_RANGE = "device-edge handoff"
 
 
+def _launched_in(prof, name) -> tuple[list, int, list]:
+    """The device records (kernels, copies, sets) that the CUDA calls the
+    host made inside the ``record_function(name)`` ranges of ``prof``
+    launched, matched to those calls by CUPTI correlation id; the number
+    of ranges; and every device record of the trace.  A record counts by
+    the call that queued it, not by where its timestamp falls: a copy the
+    coordinator queued outside every range (a checkpoint's, a stats
+    drain's) was seen to land inside one.  Only ``correlation_id`` links a record
+    to its call; ``linked_correlation_id`` counts in another id space,
+    and its values collide with the calls' ids."""
+    from torch.autograd import DeviceType
+    events = prof.profiler.kineto_results.events()
+    windows = [(ev.start_ns(), ev.end_ns()) for ev in events
+               if ev.name() == name and ev.device_type() == DeviceType.CPU]
+    calls = {ev.correlation_id() for ev in events
+             if ev.device_type() == DeviceType.CPU
+             and ev.name().startswith("cu")
+             and any(lo <= ev.start_ns() <= hi for lo, hi in windows)}
+    calls.discard(0)
+    on_device = [ev for ev in events if ev.device_type() == DeviceType.CUDA
+                 and ev.name() != name]
+    inside = [ev for ev in on_device if ev.correlation_id() in calls]
+    return inside, len(windows), on_device
+
+
 def phase_congestion_chain(torch, ops, lr, device, full=None) -> int:
     """Phase 17: ``congestion_chain`` (a tee'd stage DAG) over phase 3's
     reports on the card.  The sinks of both branches must equal the same
@@ -2767,7 +2831,6 @@ def phase_congestion_chain(torch, ops, lr, device, full=None) -> int:
     Returns the launches of the card run."""
     from collections import Counter
 
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
     from repro_torch.streaming import StreamingCoordinator
@@ -2787,9 +2850,9 @@ def phase_congestion_chain(torch, ops, lr, device, full=None) -> int:
     # one card run, in one torch.profiler session: each device-edge
     # handoff runs between two synchronizes inside its own record_function
     # range, so the device work it queued (and any copy to the host it
-    # made) lies inside that range's time window, and Python reads of a
-    # tensor are counted there too; its host time is that of the call
-    # alone, the synchronizes excluded
+    # made) is launched by CUDA calls inside that range, and Python reads
+    # of a tensor are counted there too; its host time is that of the
+    # call alone, the synchronizes excluded
     folds, reads = Counter(), Counter()
     edge_ms = []
     names = ("cpu", "tolist", "item", "numpy")
@@ -2851,35 +2914,25 @@ def phase_congestion_chain(torch, ops, lr, device, full=None) -> int:
           f"max {max(edge_ms):.3f} ms); {report.windows_emitted} windows "
           f"emitted", flush=True)
 
-    events = prof.events()
-    # the range is recorded on the host and, as an annotation, on the
-    # device: the host's marks the handoff's window
-    windows = [(ev.time_range.start, ev.time_range.end) for ev in events
-               if ev.name == EDGE_RANGE and ev.device_type == DeviceType.CPU]
-    on_device = [ev for ev in events if ev.device_type == DeviceType.CUDA
-                 and ev.name != EDGE_RANGE]
-    inside = [ev for ev in on_device
-              if any(lo <= ev.time_range.start and ev.time_range.end <= hi
-                     for lo, hi in windows)]
-    dtoh = [ev for ev in on_device if "DtoH" in ev.name
-            and any(ev.time_range.start < hi and lo < ev.time_range.end
-                    for lo, hi in windows)]
-    if len(windows) != len(edge_ms) or not inside:
+    inside, n_windows, on_device = _launched_in(prof, EDGE_RANGE)
+    dtoh = [ev for ev in inside if "DtoH" in ev.name()]
+    if n_windows != len(edge_ms) or not inside:
         raise AssertionError(f"the device edge's handoffs were not measured: "
-                             f"{len(windows)} ranges for {len(edge_ms)} "
-                             f"handoffs, {len(inside)} device records in "
-                             f"them")
+                             f"{n_windows} ranges for {len(edge_ms)} "
+                             f"handoffs, {len(inside)} device records "
+                             f"launched in them")
     if dtoh or sum(reads.values()):
         raise AssertionError(f"the device edge copied to the host: "
                              f"{len(dtoh)} DtoH copies, {dict(reads)} tensor "
-                             f"reads over {len(windows)} handoffs")
-    dev_us = sum(ev.time_range.elapsed_us() for ev in inside)
-    work = Counter(ev.name[:48] for ev in inside)
-    print(f"congestion_chain device edge: {len(windows)} handoffs, 0 "
-          f"device-to-host copies (torch.profiler Memcpy DtoH records in "
-          f"their windows; {sum('DtoH' in ev.name for ev in on_device)} in "
-          f"the whole run) and 0 tensor reads on the host; device time "
-          f"{dev_us / 1e3:.3f} ms in all = {dev_us / len(windows):.2f} us a "
+                             f"reads over {n_windows} handoffs")
+    dev_us = sum(ev.duration_ns() for ev in inside) / 1e3
+    work = Counter(ev.name()[:48] for ev in inside)
+    print(f"congestion_chain device edge: {n_windows} handoffs, 0 "
+          f"device-to-host copies (torch.profiler Memcpy DtoH records "
+          f"launched from their windows; "
+          f"{sum('DtoH' in ev.name() for ev in on_device)} in the whole "
+          f"run) and 0 tensor reads on the host; device time "
+          f"{dev_us / 1e3:.3f} ms in all = {dev_us / n_windows:.2f} us a "
           f"handoff (rows + fold, {len(inside)} device records); device work "
           f"there: {dict(work)}", flush=True)
 
@@ -3023,6 +3076,219 @@ def phase_toll_join(torch, ops, lr, device, full=None) -> int:
     return launches
 
 
+# -- phases 19-20: group mode -------------------------------------------------
+
+def _wrapped_calls(torch, cls, names, host, profiled):
+    """Wrap methods ``names`` of ``cls`` so each call adds its host time
+    to ``host[name]``; with ``profiled``, each call also runs between two
+    synchronizes inside a ``record_function(name)`` range, so the device
+    work it queued lies in that range's time window (the synchronizes are
+    not in the host time).  Returns the originals, to put back."""
+    from torch.profiler import record_function
+    saved = {n: getattr(cls, n) for n in names}
+
+    def wrapped(name):
+        def call(self, *args, **kwargs):
+            if profiled:
+                torch.cuda.synchronize()
+            with record_function(name) if profiled else nullcontext():
+                t0 = time.perf_counter()
+                out = saved[name](self, *args, **kwargs)
+                host[name] += time.perf_counter() - t0
+                if profiled:
+                    torch.cuda.synchronize()
+            return out
+        return call
+
+    for n in names:
+        setattr(cls, n, wrapped(n))
+    return saved
+
+
+def phase_segment_median(torch, ops, lr, full=None) -> None:
+    """Phase 19: ``segment_median_pipeline`` — the median speed per
+    segment over sliding 5-minute windows, group mode with
+    ``median_reduce``, 8 workers, 8 slots, ``capacity`` 2**17 — over phase
+    3's 1,000,000 reports on the card.  No buffer may drop a record and no
+    pair may be late; the sinks must equal the program built with
+    ``device="cpu"`` byte for byte and the numpy median oracle.  A second
+    card run under torch.profiler, each fold and finalization between
+    two synchronizes, gives their device time (and must emit the same
+    sinks)."""
+    from collections import defaultdict
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.engine.plan import CompiledStreamGroup
+
+    full = full or lr.FULL
+    prefix = "linear-road/reports"
+    ts, seg, speed = lr.position_reports(SEED, **full)
+    records = lr.records(ts, seg, speed)
+    opts = lr.build_options(full["n_xways"])
+
+    def program(dev):
+        return lr.segment_median_pipeline(prefix).build(
+            device=dev, job_id="segment-median", **opts)
+
+    card = program("cuda")
+    carry = card.stages[0].sides[0].compiled.init_carry()
+    carry_bytes = sum(t.numel() * t.element_size() for t in carry.values())
+    if {t.device.type for t in carry.values()} != {"cuda"}:
+        raise AssertionError("the group carry is not on the card")
+    del carry
+    names = ("step", "finalize_slot")
+    host, host_p = defaultdict(float), defaultdict(float)
+    saved = _wrapped_calls(torch, CompiledStreamGroup, names, host, False)
+    try:
+        folds_before = ops.fold.launches
+        report, got, wall = _drive(card, _lr_log(lr, records, (prefix,)))
+    finally:
+        for n in names:
+            setattr(CompiledStreamGroup, n, saved[n])
+    saved = _wrapped_calls(torch, CompiledStreamGroup, names, host_p, True)
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            report_p, got_p, wall_p = _drive(
+                program("cuda"), _lr_log(lr, records, (prefix,)))
+    finally:
+        for n in names:
+            setattr(CompiledStreamGroup, n, saved[n])
+    device = {}
+    for n in names:
+        inside, n_windows, _ = _launched_in(prof, n)
+        device[n] = (sum(ev.duration_ns() for ev in inside) / 1e6,
+                     n_windows)
+    if device["step"][1] != report_p.folds or not all(
+            ms > 0 for ms, _ in device.values()):
+        raise AssertionError(f"the profiled run's calls were not measured: "
+                             f"{device} for {report_p.folds} folds")
+    if report.capacity_dropped or report.late_dropped:
+        raise AssertionError(f"segment median dropped "
+                             f"{report.capacity_dropped} records past "
+                             f"capacity and {report.late_dropped} late pairs")
+    if ops.fold.launches != folds_before:
+        raise AssertionError("a group-mode run launched fused_fold")
+    plain, want, plain_wall = _drive(program("cpu"),
+                                     _lr_log(lr, records, (prefix,)))
+    if not want or got != want or got_p != want:
+        diff = sorted(set(got) ^ set(want))[:4] or [
+            k for k in want if got.get(k) != want[k]][:4]
+        raise AssertionError(f"segment median: card sinks != plain "
+                             f"(device='cpu') sinks: {diff}")
+    oracle = lr.median_oracle(ts, seg, speed)
+    if len(got) != len(oracle):
+        raise AssertionError(f"{len(got)} median windows, oracle "
+                             f"{len(oracle)}")
+    for start, per in oracle.items():
+        key = (f"median-speed/segment-median/window-{start:.3f}-"
+               f"{start + lr.WINDOW_SIZE:.3f}")
+        if dict(json.loads(line) for line in got[key].splitlines()) != per:
+            raise AssertionError(f"{key}: differs from the numpy median "
+                                 f"oracle")
+    (step_ms, n_steps), (fin_ms, n_fin) = device["step"], \
+        device["finalize_slot"]
+    print(f"segment_median (group mode, median_reduce) on the card: "
+          f"{report.records_in} reports in {wall:.3f} s = "
+          f"{report.records_in / wall:.0f} records/s (host wall); "
+          f"{report.batches} micro-batches; {n_steps} folds (step): host "
+          f"{host['step']:.3f} s in all, device {step_ms:.3f} ms; {n_fin} "
+          f"finalizations (finalize_slot): host {host['finalize_slot']:.3f} "
+          f"s, device {fin_ms:.3f} ms (device: torch.profiler's records "
+          f"launched from each call of a second card run, {wall_p:.3f} s, whose "
+          f"calls took {host_p['step']:.3f} / "
+          f"{host_p['finalize_slot']:.3f} s of host time between "
+          f"synchronizes); carry {carry_bytes} B (8 workers x {lr.N_SLOTS} "
+          f"slots x {lr.MEDIAN_CAPACITY} records); "
+          f"{report.records_expanded} (report, window) pairs buffered, 0 "
+          f"dropped, 0 late, 0 fused_fold launches; {len(got)} windows "
+          f"byte-identical to device='cpu' ({plain_wall:.3f} s, "
+          f"{plain.records_in / plain_wall:.0f} records/s) and equal to the "
+          f"numpy median oracle", flush=True)
+
+
+def phase_group_wordcount(torch, hc, wc, shards, combined, combined_wall
+                          ) -> None:
+    """Phase 20: the combiner-off word count, ``wordcount-hibench-large``
+    through ``group_pipeline`` — every token crosses the grouping shuffle
+    — with ``capacity`` sized from the shards so nothing drops.  Each of
+    three runs from device-resident shards must equal the ``np.bincount``
+    oracle and phase 6b's ``hash_combine`` counts exactly, with 0
+    combiner launches; prints their median wall against phase 6b's."""
+    n = shards.shape[0] * shards.shape[1]
+    t0 = time.perf_counter()
+    cap = wc.group_capacity(shards)
+    oracle = wc.oracle(shards)
+    print(f"group wordcount: capacity {cap} (the most tokens one worker "
+          f"sends one partition; send buffers {shards.shape[0]} x "
+          f"{shards.shape[0]} x {cap}) and the oracle in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    built = wc.group_pipeline(shards, cap).build(
+        num_buckets=wc.VOCAB, n_workers=shards.shape[0], device="cuda",
+        job_id=wc.NAME + "-group")
+    shards_dev = torch.from_numpy(shards).to(built.device)
+    hc.combine.launches = 0
+    walls = []
+    for _ in range(3):
+        torch.cuda.reset_peak_memory_stats()
+        wall, ((gk, gv, gvalid), stats) = _timed_run(torch, built,
+                                                     shards_dev)
+        walls.append(wall)
+        if int(stats.dropped) or int(stats.sent) != n:
+            raise AssertionError(f"group word count sent {int(stats.sent)} "
+                                 f"of {n} tokens, dropped "
+                                 f"{int(stats.dropped)}")
+        keys = gk[gvalid].long()
+        if keys.numel() != wc.VOCAB or torch.unique(keys).numel() \
+                != wc.VOCAB:
+            raise AssertionError(f"{keys.numel()} groups for {wc.VOCAB} "
+                                 f"words")
+        got = torch.zeros(wc.VOCAB, dtype=gv.dtype, device=gv.device)
+        got[keys] = gv[gvalid]
+        got = got.cpu()
+        if not np.array_equal(got.numpy(), oracle) \
+                or not torch.equal(got, combined):
+            raise AssertionError("the group word count differs from the "
+                                 "oracle or from hash_combine's counts")
+    if hc.combine.launches:
+        raise AssertionError(f"the combiner-off run launched hash_combine "
+                             f"{hc.combine.launches} times")
+    # the same reduction over real values: the card sums a key's segment
+    # in its own fixed order, the CPU (and the reference) left to right
+    from repro_torch.engine import stages
+    keys = torch.sort(shards_dev[0, :, 0])[0]
+    vals = torch.rand(keys.shape, generator=torch.Generator(
+        device=keys.device).manual_seed(SEED), device=keys.device)
+    starts = torch.cat([torch.ones(1, dtype=torch.int32, device=keys.device),
+                        (keys[1:] != keys[:-1]).to(torch.int32)])
+    card_sums = stages.segment_reduce("sum", keys, vals, starts)[1].cpu()
+    cpu_sums = stages.segment_reduce("sum", keys.cpu(), vals.cpu(),
+                                     starts.cpu())[1]
+    differ = int((card_sums != cpu_sums).sum())
+    rel = float(((card_sums - cpu_sums).abs()
+                 / cpu_sums.abs().clamp(min=1e-30)).max())
+    if rel > REAL_SUM_RTOL:
+        raise AssertionError(f"real-valued segment sums: card vs CPU "
+                             f"relative difference {rel:.3g} > "
+                             f"{REAL_SUM_RTOL}")
+    med = statistics.median(walls)
+    print(f"group wordcount real-valued witness: worker 0's {keys.numel()} "
+          f"sorted tokens with values uniform in [0, 1), segment_reduce "
+          f"'sum' on the card against the CPU: {differ} of {wc.VOCAB} sums "
+          f"differ bit-wise, max relative difference {rel:.3g} (limit "
+          f"{REAL_SUM_RTOL})", flush=True)
+    print(f"main-path {wc.NAME} combiner off (group mode): {n} tokens, "
+          f"walls from device-resident shards "
+          f"{[round(w, 4) for w in walls]} s (median {med:.4f} s = "
+          f"{n / med:.0f} tokens/s) against phase 6b's combiner "
+          f"{combined_wall:.4f} s ({med / combined_wall:.1f}x); 0 "
+          f"hash_combine launches, 0 dropped; {wc.VOCAB} word counts == "
+          f"np.bincount oracle == hash_combine's; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB",
+          flush=True)
+
+
 def main(argv=None) -> int:
     global SEED
     parser = argparse.ArgumentParser(description="Build, check and drive "
@@ -3097,8 +3363,7 @@ def main(argv=None) -> int:
     hc_shape = phase_hash_combine_main_shape(
         torch, hc, hash_combine_ref, wc, torch.from_numpy(shards).to(device))
     torch.cuda.empty_cache()
-    hc_launches = phase_wordcount(torch, hc, wc, shards)
-    del shards
+    hc_launches, hc_counts, hc_wall = phase_wordcount(torch, hc, wc, shards)
     phase_hashed(torch, hc, wc)
     torch.cuda.empty_cache()
 
@@ -3125,6 +3390,11 @@ def main(argv=None) -> int:
     phase_job_service(torch, ops, lr, device)
     phase_congestion_chain(torch, ops, lr, device)
     phase_toll_join(torch, ops, lr, device)
+    torch.cuda.empty_cache()
+    phase_segment_median(torch, ops, lr)
+    torch.cuda.empty_cache()
+    phase_group_wordcount(torch, hc, wc, shards, hc_counts, hc_wall)
+    del shards
 
     kernel = {"name": "fused_fold", "route": "cuda",
               "source": "src/repro_torch/kernels/fused_fold/csrc/"

@@ -3,8 +3,9 @@
 The build validator (``pipeline.lower``) rejects grammar violations; this
 pass goes after the failure modes that today only surface **mid-stream**,
 after a job already holds pool replicas: ring-slot exhaustion, silent
-hashed-key merging, stalled watermarks across the stage DAG, and sinks
-that collide with sources or the checkpoint namespace.  Each rule emits structured
+hashed-key merging, group-buffer overflow, stalled watermarks across the
+stage DAG, and sinks that collide with sources or the checkpoint
+namespace.  Each rule emits structured
 :class:`~repro_torch.analysis.diagnostics.Diagnostic` records;
 ``Pipeline.build`` surfaces warnings.
 
@@ -18,6 +19,10 @@ PL001   the window ring must hold the full span: ``n_slots >=``
 PL002   hashed key spaces fold labels to 24-bit raw ids; the birthday
         bound on ``num_buckets`` expected keys estimates the odds two
         distinct keys silently merge — warn above 1%
+PL003   group-mode ``capacity`` bounds one partition's record buffer; a
+        single skewed micro-batch can stage ``ceil(batch_records /
+        n_workers)`` rows into one (slot, partition) cell — warn when
+        capacity is below that floor (overflow counts, then drops)
 PL004   watermark wiring: every stage side needs an input channel
         (external stream or in-edge) or its watermark pins at -inf and no
         window ever finalizes; carry-fed stages receive finalized windows
@@ -30,12 +35,11 @@ PL005   sink prefixes must not overlap each other, any source log prefix
         carry blob as a persisted window)
 ======  ====================================================================
 
-PL001 and PL002 read windowed record stages; an array (batch) program
-has none, so only PL005 applies to it, as in the reference.
+PL001, PL002 and PL003 read windowed record stages; an array (batch)
+program has none, so only PL005 applies to it, as in the reference.
 
-The reference's PL003 (group-mode capacity) arrives with group mode
-(ROADMAP Queue A #8).  PL006 (carry donation) has no counterpart: the
-port updates its carry in place, so there is no donation to misuse.
+PL006 (carry donation) has no counterpart: the port updates its carry in
+place, so there is no donation to misuse.
 """
 
 from __future__ import annotations
@@ -59,6 +63,7 @@ RESERVED_PREFIXES = ("jobs/",)
 RULES = {
     "PL001": "window ring too small for the window span (+ lateness)",
     "PL002": "hashed fold_key24 collision probability above threshold",
+    "PL003": "group-mode capacity below one micro-batch's worst-case load",
     "PL004": "watermark wiring: unfed side / dead lateness / lagging join",
     "PL005": "sink prefix overlaps a sink, a source, or a reserved namespace",
 }
@@ -144,6 +149,30 @@ def _check_hash_collisions(built, out: list) -> None:
             f"merge)" + (" — use key_space='dense' or fewer expected keys"
                          if level == WARNING else ""),
             loc=f"stage {st.index}"))
+
+
+def _check_group_capacity(built, out: list) -> None:
+    """PL003 — group mode buffers each partition's records per window
+    slot up to ``capacity`` and **drops** the overflow (counted in
+    ``capacity_dropped``).  The static floor: one micro-batch can stage
+    ``ceil(batch_records / n_workers)`` rows into a single partition
+    (every key hashing together), and a window spanning several batches
+    accumulates further — capacity must at least clear the single-batch
+    floor."""
+    for st in _record_stages(built):
+        if st.mode != "group" or st.window.is_session:
+            continue
+        floor = math.ceil(built.batch_records / built.n_workers)
+        if st.capacity < floor:
+            out.append(Diagnostic(
+                "PL003", WARNING,
+                f"group capacity={st.capacity} is below the "
+                f"{floor} records one micro-batch can stage into a "
+                f"single partition (batch_records={built.batch_records} "
+                f"/ n_workers={built.n_workers}); a skewed batch "
+                f"overflows the buffer (dropped, counted in "
+                f"capacity_dropped) — size capacity for window span × "
+                f"per-partition rate", loc=f"stage {st.index}"))
 
 
 def _check_watermarks(built, out: list) -> None:
@@ -240,6 +269,7 @@ def check_plan(built, *, source_prefixes=()) -> list:
     out: list = []
     _check_ring_slots(built, out)
     _check_hash_collisions(built, out)
+    _check_group_capacity(built, out)
     _check_watermarks(built, out)
     _check_sink_prefixes(built, out, source_prefixes)
     return out

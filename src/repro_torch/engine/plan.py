@@ -10,7 +10,8 @@ or hashed open domains).  ``WindowSpec`` says whether records carry
 event-time windows fanned out on the device (one 5-column row per record)
 or already expanded by the host (one 4-column row per record × window).
 ``ReduceSpec`` says how values reduce: the aggregate fold, optionally
-with a top-k selection at finalization.
+with a top-k selection at finalization, or group mode — any reducer over
+each key's full value list, after a fixed-capacity grouping shuffle.
 
 ``ExecutionPlan.compile(device=...)`` lowers a windowed aggregate plan to
 a ``CompiledStreamAggregate``: a flat ``(n_slots * num_buckets, 2)``
@@ -28,11 +29,19 @@ finalized window into a successor stage's wire rows on the device.
 A batch plan (``window=None``) compiles with its map UDF to a
 ``CompiledBatchPlan``: ``run(shards)`` applies the UDF to each worker's
 shard, as the reference's ``vmap`` does, and combines every worker's
-records in one ``hash_combine`` launch (``engine.stages``).  Its result
-has the shape the reference's ``backend="vmap"`` gives.  Group mode and
-the simulated-worker and multi-process backends are not ported yet;
-asking for them raises ``NotImplementedError`` naming the ``ROADMAP.md``
-item.
+records in one ``hash_combine`` launch (``engine.stages``) — or, in
+group mode, runs the grouping shuffle over the explicit worker axis
+(per-worker send buffers of ``capacity`` records a partition, the
+exchange, and the reducer on each worker's merged stream).  Its result
+has the shape the reference's ``backend="vmap"`` gives.
+
+A windowed group plan compiles to a ``CompiledStreamGroup``: its carry is
+the reference's ``vmap`` layout, fixed-capacity record buffers per
+(worker, window slot), and the reducer runs over each key's buffered
+values when a window finalizes.  Group mode has no kernel in either
+package; its stages are plain tensor ops on the plan's device.  The
+simulated-worker and multi-process backends are not ported yet; asking
+for them raises ``NotImplementedError`` naming the ``ROADMAP.md`` item.
 """
 
 from __future__ import annotations
@@ -176,7 +185,11 @@ class ReduceSpec:
     ranking kind).  ``combine_fn`` is a batch plan's combiner
     (``stages.resolve_combine_fn``: ``None`` and ``"pallas"`` name the
     ``hash_combine`` kernel); the streaming fold is its own combiner.
-    ``group`` mode is not ported yet.
+    ``group`` — ``reduce_fn`` (a ``stages.SEGMENT_REDUCE_KINDS`` name or a
+    ``(keys, values, starts) -> (gk, gv, gvalid)`` callable, see
+    ``engine.stages``) over each key's full, exchanged value list;
+    ``capacity`` bounds the per-partition record buffers (the spill-file
+    size bound), and records past it are dropped and counted.
 
     ``channels`` / ``channel_base`` let several plans share one aggregate
     carry: each plan folds its ``[value, 1]`` pair into channels
@@ -190,10 +203,11 @@ class ReduceSpec:
     width.
     """
 
-    mode: str = "aggregate"         # "aggregate" | "top_k" ("group": later)
+    mode: str = "aggregate"         # "aggregate" | "group" | "top_k"
     reduce_fn: str | Callable = "sum"
     k: int = 0                      # top_k mode: selection capacity
     combine_fn: str | Callable | None = None
+    capacity: int = 0               # group mode: records a buffer holds
     channels: int = 2               # carry width (2 per resident plan)
     channel_base: int = 0           # this plan's [sum, count] offset
     carry_buckets: int = 0          # shared carry bucket width (0 → own)
@@ -207,8 +221,9 @@ class ReduceSpec:
 class ExecutionPlan:
     """One device MapReduce job, declaratively.  ``compile()`` lowers it.
     A batch plan has ``n_workers`` worker shards and pads its bucket space
-    to a multiple of it.  A streaming plan ignores it: the fused fold runs
-    over the whole flat carry with no worker axis until the
+    to a multiple of it; a group plan, batch or windowed, keeps one
+    partition a worker.  A streaming aggregate plan ignores it: the fused
+    fold runs over the whole flat carry with no worker axis until the
     ``vmap``/``shard_map`` slice (ROADMAP Queue A #11)."""
 
     key_space: KeySpace
@@ -225,11 +240,13 @@ class ExecutionPlan:
 
     def compile(self, map_fn: Callable | None = None, *,
                 backend: str = BACKEND, device="cuda", finalize: bool = True
-                ) -> "CompiledStreamAggregate | CompiledBatchPlan":
+                ) -> ("CompiledStreamAggregate | CompiledStreamGroup | "
+                      "CompiledBatchPlan"):
         """Lower the plan onto ``device``: a batch plan (``window=None``)
         with its map UDF to a ``CompiledBatchPlan``, a windowed aggregate
-        (or top-k) plan to a ``CompiledStreamAggregate``.  ``finalize``
-        (batch only) gathers the workers' bucket slices into one vector."""
+        (or top-k) plan to a ``CompiledStreamAggregate``, a windowed group
+        plan to a ``CompiledStreamGroup``.  ``finalize`` (batch only)
+        gathers the workers' results into one."""
         rs = self.reduce
         if backend in _UNPORTED_BACKENDS:
             raise not_ported(f"backend={backend!r}",
@@ -237,12 +254,10 @@ class ExecutionPlan:
         if backend != BACKEND:
             raise ValueError(f"unknown backend {backend!r} (the port has "
                              f"{BACKEND!r})")
-        if rs.mode == "group":
-            what = "group-mode reduction" if self.window is not None \
-                else "group-mode array reduction"
-            raise not_ported(what, "Queue A #8 (group mode)")
-        if rs.mode not in ("aggregate", "top_k"):
+        if rs.mode not in ("aggregate", "group", "top_k"):
             raise ValueError(f"unknown reduce mode {rs.mode!r}")
+        if rs.mode == "group" and rs.capacity <= 0:
+            raise ValueError("grouping mode needs a positive capacity")
         if rs.mode == "top_k" and rs.k < 1:
             raise ValueError("top_k mode needs k >= 1")
         if rs.mode == "top_k" and rs.channel_base != 0:
@@ -280,6 +295,11 @@ class ExecutionPlan:
                                  "aggregate fold (fan-out 1) only")
         if self.window.fanout_on_device and self.window.size <= 0:
             raise ValueError("on-device fan-out needs a positive window size")
+        if rs.mode == "group":
+            if not self.window.fanout_on_device:
+                raise ValueError("windowed group mode runs with on-device "
+                                 "fan-out only")
+            return CompiledStreamGroup(self, resolve_device(device))
         return CompiledStreamAggregate(self, resolve_device(device))
 
 
@@ -308,10 +328,13 @@ def map_shards(shards: torch.Tensor, map_fn, n_workers: int):
 def _batch_body(shards: torch.Tensor, *, plan: ExecutionPlan, map_fn,
                 finalize: bool):
     """Map every worker's shard, then one aggregating shuffle over all of
-    their records.  Returns ``(result, ShuffleStats)`` shaped as the
-    reference's ``vmap`` backend returns them: the padded bucket vector
-    (``finalize``), or its ``(n_workers, padded / n_workers, ...)``
-    per-worker slices."""
+    their records, or the grouping shuffle over the worker axis.  Returns
+    ``(result, ShuffleStats)`` shaped as the reference's ``vmap`` backend
+    returns them: the padded bucket vector (``finalize``), or its
+    ``(n_workers, padded / n_workers, ...)`` per-worker slices; in group
+    mode the ``(group_keys, group_values, group_valid)`` triple, every
+    worker's ``n_workers * capacity`` groups concatenated in worker order
+    (``finalize``) or stacked ``(n_workers, n_workers * capacity)``."""
     ks, rs, n_workers = plan.key_space, plan.reduce, plan.n_workers
     keys, values, valid = map_shards(shards, map_fn, n_workers)
     raw = keys.to(torch.int32)
@@ -321,6 +344,9 @@ def _batch_body(shards: torch.Tensor, *, plan: ExecutionPlan, map_fn,
         distinct = stages.distinct_keys_per_bucket(raw, valid,
                                                    ks.num_buckets)
         collisions = torch.clamp(distinct - 1, min=0)
+    if rs.mode == "group":
+        return _batch_group(buckets, values, valid, plan=plan,
+                            finalize=finalize, collisions=collisions)
     padded = ks.padded(n_workers)
     agg = stages.shuffle_aggregate(buckets, values, padded, valid=valid,
                                    combine_fn=rs.combine_fn)
@@ -333,6 +359,32 @@ def _batch_body(shards: torch.Tensor, *, plan: ExecutionPlan, map_fn,
                        + tuple(agg.shape[1:])), stats
 
 
+def _batch_group(buckets: torch.Tensor, values: torch.Tensor,
+                 valid: torch.Tensor, *, plan: ExecutionPlan, finalize: bool,
+                 collisions):
+    """The group-mode batch body after the map: every worker's records
+    (worker-major, as ``map_shards`` concatenates them) through the
+    grouping shuffle, then the reducer on each worker's merged stream —
+    the user reducer sees one worker's stream at a time, as under the
+    reference's ``vmap``."""
+    rs, n_workers = plan.reduce, plan.n_workers
+    vshape = tuple(values.shape[1:])
+    out_k, out_v, starts, xstats = stages.shuffle_group(
+        buckets.reshape(n_workers, -1),
+        values.reshape((n_workers, -1) + vshape), n_workers, rs.capacity,
+        valid=valid.reshape(n_workers, -1))
+    groups = [stages.apply_reduce_fn(rs.reduce_fn, out_k[w], out_v[w],
+                                     starts[w]) for w in range(n_workers)]
+    gk, gv, gvalid = (torch.stack([g[i] for g in groups]) for i in range(3))
+    stats = stages.ShuffleStats(torch.sum(xstats.sent, dtype=torch.int32),
+                                torch.sum(xstats.dropped, dtype=torch.int32),
+                                collisions)
+    if finalize:
+        return (gk.reshape(-1), gv.reshape((-1,) + tuple(gv.shape[2:])),
+                gvalid.reshape(-1)), stats
+    return (gk, gv, gvalid), stats
+
+
 class CompiledBatchPlan:
     """One-shot lowering: ``run(shards) -> (result, ShuffleStats)``.
 
@@ -340,7 +392,9 @@ class CompiledBatchPlan:
     once to the plan's device.  The aggregate result is the padded dense
     bucket vector (``finalize=True``) or the per-worker slices of it; a
     top-k plan returns ``(bucket_ids, values, valid)`` of length ``k``
-    over the unpadded vector.  Results and stats stay on the device.
+    over the unpadded vector; a group plan returns the ``(group_keys,
+    group_values, group_valid)`` triple.  Results and stats stay on the
+    device.
     """
 
     def __init__(self, plan: ExecutionPlan, map_fn: Callable,
@@ -375,6 +429,18 @@ def _to_host(t: torch.Tensor) -> np.ndarray:
     """A host copy that later in-place carry updates cannot reach (on the
     CPU, ``.numpy()`` alone would alias the carry)."""
     return t.to("cpu", copy=True).numpy()
+
+
+def _rows_to(rows, device: torch.device) -> torch.Tensor:
+    """Wire rows on the plan's device: a numpy array or a host tensor is
+    copied there (to a card through pinned memory without waiting, so the
+    fold queues behind the copy and the host moves on); a tensor already
+    there passes through."""
+    if not isinstance(rows, torch.Tensor):
+        rows = torch.from_numpy(np.ascontiguousarray(rows, np.float32))
+    if device.type == "cuda" and rows.device.type == "cpu":
+        return rows.pin_memory().to(device, non_blocking=True)
+    return rows.to(device)
 
 
 class CompiledStreamAggregate:
@@ -424,12 +490,7 @@ class CompiledStreamAggregate:
         card through pinned memory without waiting, so the fold queues
         behind the copy and the host moves on) or a tensor already
         there."""
-        if not isinstance(rows, torch.Tensor):
-            rows = torch.from_numpy(np.ascontiguousarray(rows, np.float32))
-        if self.device.type == "cuda" and rows.device.type == "cpu":
-            rows = rows.pin_memory().to(self.device, non_blocking=True)
-        else:
-            rows = rows.to(self.device)
+        rows = _rows_to(rows, self.device)
         if not self.plan.window.fanout_on_device:
             min_window = None
         return fused_fold.fold(rows, carry, min_window, **self._geometry)
@@ -516,3 +577,95 @@ class CompiledStreamAggregate:
         return stages.carry_handoff_rows(
             self._slot_rows(carry, slot), relabel, last_window, n_windows,
             kind, dst_rows, channel_base=self.plan.reduce.channel_base)
+
+
+# ---------------------------------------------------------------------------
+# The streaming group-mode lowering
+# ---------------------------------------------------------------------------
+
+class CompiledStreamGroup:
+    """Streaming group-mode lowering: the carry is a fixed-capacity record
+    buffer per (worker, window slot), and any ``reduce_fn`` runs over each
+    key's full value list when a window finalizes (``finalize_slot``) —
+    the contract of batch group mode.
+
+    The carry is the reference's ``vmap`` layout, the dict ``{"keys":
+    (W, n_slots, capacity) int32 (-1 = empty), "vals": (W, n_slots,
+    capacity) float32, "counts": (W, n_slots) int32}`` on the plan's
+    device, so a checkpoint of it moves between the two packages.
+
+    ``step(rows, carry, min_window) -> (carry, stats)`` folds one
+    device-wire micro-batch: the records fan out to their windows on the
+    device, each live (record, window) pair goes to worker
+    ``hash_partition(slot * num_buckets + bucket, W)``, and is appended to
+    that worker's buffer for the slot.  The reference deals the wire to its
+    workers in contiguous slices and exchanges with a send capacity of
+    every expanded record, so its exchange never drops and each buffer
+    receives its records in wire order; one stable sort of the whole wire
+    by (worker, slot) puts them in the same places, and only the buffers
+    drop, past ``capacity``.  ``stats`` is an int32 ``[late, expanded,
+    dropped]`` tensor left on the device.  ``step`` returns new buffers
+    (it does not write into the ones it is given); ``clear_slot`` empties
+    a slot in place.
+    """
+
+    def __init__(self, plan: ExecutionPlan, device: torch.device):
+        self.plan = plan
+        self.device = device
+
+    def init_carry(self) -> dict:
+        """Empty per-(worker, window slot) record buffers on the plan's
+        device."""
+        plan = self.plan
+        shape = (plan.n_workers, plan.window.n_slots, plan.reduce.capacity)
+        return {"keys": torch.full(shape, stages.INVALID, dtype=torch.int32,
+                                   device=self.device),
+                "vals": torch.zeros(shape, dtype=torch.float32,
+                                    device=self.device),
+                "counts": torch.zeros(shape[:-1], dtype=torch.int32,
+                                      device=self.device)}
+
+    def step(self, rows, carry: dict, min_window: int = -(2 ** 31)):
+        """One micro-batch fold of device-wire rows ``[last_window,
+        n_windows, key, value, valid]`` (window indices rebased by the
+        caller; ``min_window`` is the late bound on the same base)."""
+        plan = self.plan
+        ks, ws = plan.key_space, plan.window
+        rows = _rows_to(rows, self.device)
+        last, nw = rows[:, 0].to(torch.int32), rows[:, 1].to(torch.int32)
+        keys = rows[:, 2].to(torch.int32)
+        buckets = stages.bucketize(keys, ks.num_buckets, hashed=ks.is_hashed)
+        slots, keys_f, vals_f, live, late, expanded = stages.window_fanout(
+            last, nw, buckets, rows[:, 3], rows[:, 4] > 0, ws.fanout,
+            ws.n_slots, min_window)
+        flat = slots.to(torch.int64) * ks.num_buckets + keys_f
+        cell = (stages.hash_partition(flat, plan.n_workers).to(torch.int64)
+                * ws.n_slots + slots)
+        n_cells = plan.n_workers * ws.n_slots
+        cap = plan.reduce.capacity
+        kb, vb, counts, dropped = stages.append_window_records(
+            carry["keys"].reshape(n_cells, cap),
+            carry["vals"].reshape(n_cells, cap),
+            carry["counts"].reshape(n_cells), cell * ks.num_buckets + keys_f,
+            vals_f, live, n_cells, cap, ks.num_buckets)
+        shape = carry["keys"].shape
+        new = {"keys": kb.reshape(shape), "vals": vb.reshape(shape),
+               "counts": counts.reshape(shape[:-1])}
+        return new, torch.stack([late, expanded, dropped])
+
+    def finalize_slot(self, carry: dict, slot: int
+                      ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Gather, merge and reduce one window's buffered records across
+        every worker; returns host ``(group_keys, group_values,
+        group_valid)`` of length ``W * capacity`` (the window's groups
+        first, in key order)."""
+        gk, gv, gvalid = stages.gather_window_group(
+            carry["keys"], carry["vals"], slot, self.plan.reduce.reduce_fn)
+        return _to_host(gk), _to_host(gv), _to_host(gvalid)
+
+    def clear_slot(self, carry: dict, slot: int) -> dict:
+        """Empty one slot of every worker's buffers (in place) so its ring
+        slot can be reused."""
+        stages.clear_window_group(carry["keys"], carry["vals"],
+                                  carry["counts"], slot)
+        return carry

@@ -19,8 +19,10 @@ execution plans (``repro_torch.pipeline.lower``); the built artifact then
 runs the *same* graph in batch mode (one drive over an object-store
 prefix) or streaming mode (micro-batches through the
 ``StreamingCoordinator``) with bit-identical per-window results.  Group
-mode (``reduce(..., mode="group")``) is not ported yet: it raises
-``NotImplementedError`` at ``build()`` and is queued in ``ROADMAP.md``.
+mode (``reduce(spec, mode="group", capacity=C)``, or a callable ``spec``)
+runs any reducer over each key's full value list, in array pipelines and
+in windowed stages alike (see ``repro_torch.engine.stages`` for the
+callable's contract).
 
 Two source families share the grammar:
 
@@ -197,7 +199,9 @@ class Pipeline:
         segment-reducer kind name, or a callable group reducer (the
         ``(keys, values, starts) -> (gk, gv, gvalid)`` contract).  A
         callable implies ``mode="group"``; group mode needs ``capacity``
-        (records buffered per worker per window slot).
+        (records buffered per worker per window slot, or sent per worker
+        to each partition in an array pipeline; records past it are
+        dropped and counted).
 
         ``num_buckets`` / ``n_slots`` are *stage-local* build options: the
         stage this reduce closes sizes its own carry (key-bucket width ×

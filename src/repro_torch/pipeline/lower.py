@@ -2,7 +2,8 @@
 
 ``build_pipeline`` walks a ``Pipeline`` graph, validates the stage grammar
 (one source; maps fuse; ``window`` before ``reduce``; ``top_k`` only over
-an aggregate reduce; joins windowed and reduced on both sides) and lowers
+an aggregate reduce; joins windowed and reduced on both sides, in
+aggregate mode) and lowers
 each stage chain onto ``repro_torch.engine``, compiled on the build's
 ``device`` (``"cuda"`` unless the caller asks for ``"cpu"``):
 
@@ -36,9 +37,15 @@ each stage chain onto ``repro_torch.engine``, compiled on the build's
   pipelines only;
 * ``top_k(k)`` → ``ReduceSpec(mode="top_k")`` — the aggregate fold plus
   the fixed-capacity heavy-hitters selection at finalization;
+* ``reduce(spec, mode="group", capacity=C)`` (or a callable ``spec``) →
+  ``ReduceSpec(mode="group")``: on a windowed stage a
+  ``CompiledStreamGroup`` (record buffers per worker and window slot,
+  device fan-out wire only), whose finalized windows emit, or feed a
+  successor over a host edge, as ``(label, value)`` records;
 * an array pipeline (``from_source(shards=...)``) with its one ``map``
   node, the device UDF, → a batch ``ExecutionPlan`` (no window) compiled
-  to a ``CompiledBatchPlan`` (``BuiltPipeline.batch_plan``).
+  to a ``CompiledBatchPlan`` (``BuiltPipeline.batch_plan``), aggregate or
+  group.
 
 The result is a ``BuiltPipeline`` — the program the
 ``StreamingCoordinator`` drives (streaming mode) and the batch runner
@@ -46,10 +53,10 @@ drives once over the whole input (batch mode), with bit-identical
 per-window output bytes on every branch; an array pipeline's program runs
 once over its shards.
 
-The reference also lowers group-mode reduction and compiles to
-simulated-worker and multi-process backends.  Neither is ported yet: each
-raises ``NotImplementedError`` at build naming the ``ROADMAP.md`` item
-that queues it — nothing falls back.
+The reference also compiles to simulated-worker and multi-process
+backends.  They are not ported yet: asking for one raises
+``NotImplementedError`` at build naming the ``ROADMAP.md`` item that
+queues it — nothing falls back.
 """
 
 from __future__ import annotations
@@ -60,7 +67,8 @@ from dataclasses import dataclass
 from typing import Any, Callable
 
 from ..engine.plan import (BACKEND, ExecutionPlan, KeySpace, ReduceSpec,
-                           WindowSpec, not_ported)
+                           WindowSpec)
+from ..engine.stages import SEGMENT_REDUCE_KINDS
 from ..streaming.sessions import SessionTracker
 from ..streaming.state import WindowTracker
 from ..streaming.windows import SlidingWindows, TumblingWindows
@@ -139,6 +147,7 @@ class _Chain:
     windowing: Windowing | None
     reduce_spec: str | Callable
     reduce_mode: str
+    capacity: int = 0               # group mode: the record buffer bound
     top: dict | None = None         # this stage's top_k node, if any
     options: dict = dataclasses.field(default_factory=dict)  # stage-local
 
@@ -166,8 +175,9 @@ class EmitSpec:
     emission of a terminal stage, or the handoff records of an
     intermediate one."""
 
-    kind: str                       # "aggregate" | "top_k" | "join"
+    kind: str                       # "aggregate" | "group" | "top_k" | "join"
     aggregation: str = "count"      # aggregate / session emission kind
+    reduce_fn: str | Callable = "sum"   # group: the reducer
     k: int = 0
     rank_by: str = "sum"            # top_k ranking kind
     join_aggs: tuple = ("sum", "sum")
@@ -203,11 +213,12 @@ class StagePlan:
     index: int
     sides: tuple[SidePlan, ...]
     window: Windowing | None
-    mode: str                       # fold machinery: "aggregate"
+    mode: str                       # fold machinery: "aggregate" | "group"
     emit: EmitSpec
     num_buckets: int                # carry bucket width (max over sides)
     n_slots: int
     allowed_lateness: float
+    capacity: int = 0               # group mode: the record buffer bound
     handoff_device: bool = False    # every out-edge hands off on device
     #: every out-edge passes keys through unchanged (no host transform,
     #: default key_by, aggregate emission) — each successor's dense
@@ -436,6 +447,7 @@ def _parse_chain(p: Pipeline, *, side: str, allow_join: bool,
             windowing=stage["windowing"],
             reduce_spec=stage["reduce"]["spec"],
             reduce_mode=stage["reduce"]["mode"],
+            capacity=stage["reduce"]["capacity"],
             top=stage["top"],
             options={k: stage["reduce"][k]
                      for k in ("num_buckets", "n_slots")
@@ -554,7 +566,11 @@ def _check_reduce(chain: _Chain, *, in_join: bool) -> None:
     elif mode == "group":
         if in_join:
             raise PipelineError("join sides must reduce in aggregate mode")
-        raise not_ported("group-mode reduction", "Queue A #8 (group mode)")
+        if chain.capacity < 1:
+            raise PipelineError("group mode needs capacity >= 1")
+        if isinstance(spec, str) and spec not in SEGMENT_REDUCE_KINDS:
+            raise PipelineError(f"group reduce kind must be a callable or "
+                                f"one of {SEGMENT_REDUCE_KINDS}")
     else:
         raise PipelineError(f"unknown reduce mode {mode!r}")
 
@@ -608,7 +624,10 @@ def _lower_side(chain: _Chain, name: str, *, num_buckets: int,
         window = WindowSpec(size=w.size, slide=w.slide, n_slots=n_slots,
                             fanout_on_device=fanout == "device")
     carry = 0 if carry_buckets == ks.num_buckets else carry_buckets
-    if top_k:
+    if chain.reduce_mode == "group":
+        reduce = ReduceSpec("group", reduce_fn=chain.reduce_spec,
+                            capacity=chain.capacity)
+    elif top_k:
         reduce = ReduceSpec(mode="top_k", reduce_fn=rank_by, k=top_k,
                             channels=channels, channel_base=channel_base,
                             carry_buckets=carry)
@@ -643,8 +662,9 @@ def _lower_array(chain: _Chain, *, num_buckets: int, n_workers: int,
                             combine_fn=combine_fn)
         emit = EmitSpec("top_k", k=top["k"], rank_by=rank_by)
     elif chain.reduce_mode == "group":
-        raise not_ported("group-mode array reduction",
-                         "Queue A #8 (group mode)")
+        reduce = ReduceSpec("group", reduce_fn=chain.reduce_spec,
+                            capacity=chain.capacity)
+        emit = EmitSpec("group", reduce_fn=chain.reduce_spec)
     else:
         reduce = ReduceSpec("aggregate", combine_fn=combine_fn)
         emit = EmitSpec("aggregate", aggregation=chain.reduce_spec)
@@ -656,7 +676,7 @@ def _lower_array(chain: _Chain, *, num_buckets: int, n_workers: int,
                     value_fn=chain.value_fn, compiled=compiled,
                     num_buckets=num_buckets)
     stage = StagePlan(0, (side,), None, chain.reduce_mode, emit,
-                      num_buckets, n_slots, lateness)
+                      num_buckets, n_slots, lateness, chain.capacity)
     return compiled, stage
 
 
@@ -674,13 +694,15 @@ def _stage_emit(chain: _Chain, num_buckets: int) -> tuple[EmitSpec, int, str]:
             raise PipelineError(f"top_k ranks by one of {AGGREGATE_KINDS}")
         emit = EmitSpec("top_k", aggregation=chain.reduce_spec,
                         k=top_k, rank_by=rank_by)
+    elif chain.reduce_mode == "group":
+        emit = EmitSpec("group", reduce_fn=chain.reduce_spec)
     else:
         emit = EmitSpec("aggregate", aggregation=chain.reduce_spec)
     return emit, top_k, rank_by
 
 
 def _check_record_stage(chain: _Chain, *, name: str, n_slots: int,
-                        lateness: float) -> None:
+                        lateness: float, fanout: str) -> None:
     """The per-stage validation shared by every record stage of the DAG —
     run with the stage's *resolved* (possibly stage-local) options.  The
     reference also requires ``num_buckets`` to divide by ``n_workers``;
@@ -693,9 +715,15 @@ def _check_record_stage(chain: _Chain, *, name: str, n_slots: int,
                             "with a large size for a single global window)")
     _check_windowing(chain.windowing, n_slots, lateness)
     _check_reduce(chain, in_join=False)
-    if chain.windowing.is_session and chain.top is not None:
-        raise PipelineError("top_k over session windows is meaningless "
-                            "(a session holds one key)")
+    if chain.windowing.is_session:
+        if chain.reduce_mode != "aggregate":
+            raise PipelineError("session windows reduce in aggregate mode "
+                                "only")
+        if chain.top is not None:
+            raise PipelineError("top_k over session windows is meaningless "
+                                "(a session holds one key)")
+    if chain.reduce_mode == "group" and fanout != "device":
+        raise PipelineError(where + "group mode runs with fanout='device'")
 
 
 def _stage_options(chain: _Chain, *, name: str, num_buckets: int,
@@ -839,7 +867,8 @@ def build_pipeline(p: Pipeline, *, num_buckets=128, n_workers: int = 8,
             raise PipelineError("stage-local options cannot combine with a "
                                 "KeySpace instance (it fixes one bucket "
                                 "width for the whole graph)")
-        _check_record_stage(ch, name=name, n_slots=ns, lateness=lateness)
+        _check_record_stage(ch, name=name, n_slots=ns, lateness=lateness,
+                            fanout=fanout)
         emit, top_k, rank_by = _stage_emit(ch, nb)
         side = _lower_side(ch, name or "main", num_buckets=nb,
                            n_workers=n_workers, n_slots=ns,
@@ -847,7 +876,7 @@ def build_pipeline(p: Pipeline, *, num_buckets=128, n_workers: int = 8,
                            backend=backend, device=device, channels=2,
                            channel_base=0, top_k=top_k, rank_by=rank_by)
         stages.append(StagePlan(idx, (side,), ch.windowing, ch.reduce_mode,
-                                emit, nb, ns, lateness,
+                                emit, nb, ns, lateness, ch.capacity,
                                 output_prefix=prefix))
         side_chains.append((ch,))
         return idx

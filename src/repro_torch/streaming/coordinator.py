@@ -32,16 +32,25 @@ stay bit-identical.  Finalization is one forward sweep over the stages,
 and a stage with several inputs (a join over multi-stage sides) advances
 its watermark to the *minimum* over its input channels.  Session windows
 run in single-stage pipelines only.  The carries are torch tensors on the
-program's device, folded in place by the fused fold
-(``kernels/fused_fold``); group mode is rejected at build time and queued
-in ``ROADMAP.md``.
+program's device: an aggregate stage's is folded in place by the fused
+fold (``kernels/fused_fold``); a group-mode stage's is its record
+buffers per (worker, window slot), whose finalized windows run the
+stage's reducer over each key's values (``CompiledStreamGroup``) and
+emit — or feed a successor over a host edge — ``(label, value)``
+records in label order.  Its third fold counter, the records the
+buffers dropped past their capacity, adds up in
+``StreamReport.capacity_dropped``.
 
 Checkpoints keep the reference's format byte for byte: an npz of
 ``leaf{i}`` arrays for the tuple of stage carries under
-``jobs/<job_id>/stream/carry``, and the same metadata JSON (offset,
-``carry_shapes``, per-stage tracker and key tables, per-edge ``edge_fed``).
-A job checkpointed by the reference's ``backend="pallas"`` coordinator
-resumes here, and the reverse.
+``jobs/<job_id>/stream/carry`` (in pytree leaf order: an aggregate
+stage's slab is one leaf, a group stage's dict three — ``counts``,
+``keys``, ``vals``), and the same metadata JSON (offset,
+``carry_shapes``, per-stage tracker and key tables, per-edge
+``edge_fed``).  A job checkpointed by the reference's coordinator resumes
+here, and the reverse, where the carries have one layout in both: the
+aggregate slab of its ``backend="pallas"`` and the group buffers of its
+``vmap``.
 
 The drive loop is the reference's three-lane scheduler (``RunOptions``).
 *Prepare*: a background thread reads and host-prepares micro-batch N+1
@@ -226,6 +235,7 @@ class StreamReport:
     max_lag: int = 0                # worst backpressure observed
     scale_events: int = 0           # pool resizes driven by lag
     hash_collisions: int = 0        # hashed key space: keys sharing a bucket
+    capacity_dropped: int = 0       # group mode: window-buffer overflow
     writes_skipped: int = 0         # restart: windows already persisted
     folds: int = 0                  # fold steps dispatched, all stages
     emit_latencies: list[float] = field(default_factory=list)
@@ -303,6 +313,31 @@ def carries_from_reference(arrays, device="cuda") -> tuple[torch.Tensor, ...]:
                              f"shape {a.shape}")
         out.append(torch.tensor(a, dtype=torch.float32, device=device))
     return tuple(out)
+
+
+def _carry_leaves(carry) -> list:
+    """One stage's carry as the reference's pytree leaves: the aggregate
+    slab, or a group carry's ``counts``, ``keys``, ``vals`` (a dict's
+    leaves come in sorted key order)."""
+    if isinstance(carry, dict):
+        return [carry[k] for k in sorted(carry)]
+    return [carry]
+
+
+def _restore_carry(like, arrays: list, device):
+    """Checkpointed leaves as a carry of ``like``'s kind on ``device``:
+    an aggregate slab through ``carries_from_reference``, a group carry
+    leaf by leaf in its own dtypes."""
+    if not isinstance(like, dict):
+        return carries_from_reference(arrays, device)[0]
+    out = {}
+    for name, arr in zip(sorted(like), arrays):
+        want = like[name].dtype
+        if torch.from_numpy(np.zeros(0, arr.dtype)).dtype != want:
+            raise TypeError(f"group carry leaf {name!r} is {want}, the "
+                            f"checkpoint holds {arr.dtype}")
+        out[name] = torch.tensor(arr, dtype=want, device=device)
+    return out
 
 
 class _KeyTable:
@@ -492,9 +527,10 @@ class StreamingCoordinator:
         external input lands, each in-edge source's worst-case window
         output where the carry feeds it (a stage fed both ways takes the
         max; grown on demand if flat-maps expand it), times the window
-        fan-out on the host fan-out wire.  The flat fold has no worker
-        axis, so unlike the reference the wire is not split into
-        ``n_workers`` per-worker slices."""
+        fan-out on the host fan-out wire.  A group stage's window holds
+        up to ``n_workers * capacity`` groups.  The flat wire is not split
+        into ``n_workers`` per-worker slices, so unlike the reference's
+        the bound is not rounded up to a multiple of them."""
         prog = self.prog
         sp = prog.stages[si]
         bounds = [prog.batch_records] if any(
@@ -503,6 +539,8 @@ class StreamingCoordinator:
             prev = prog.stages[e.spec.src]
             if prev.emit.kind == "top_k":
                 bounds.append(max(prev.emit.k, 1))
+            elif prev.emit.kind == "group":
+                bounds.append(prog.n_workers * max(prev.capacity, 1))
             else:
                 bounds.append(prev.num_buckets)
         bound = max(bounds)
@@ -645,9 +683,10 @@ class StreamingCoordinator:
         self._apply_stats(si, stats.tolist(), report)
 
     def _apply_stats(self, si: int, counters, report: StreamReport) -> None:
-        late, expanded, _ = counters    # the third counter is group mode's
+        late, expanded, dropped = counters
         self.stages[si].tracker.note_late(late)
         report.records_expanded += expanded
+        report.capacity_dropped += dropped
 
     @lane("barrier")
     def _drain_stats(self, report: StreamReport) -> None:
@@ -724,7 +763,12 @@ class StreamingCoordinator:
         compiled = stage.compiled
         table = stage.tables[0]
         records: list[tuple[str, Any]] = []
-        if emit.kind == "top_k":
+        if emit.kind == "group":
+            gk, gv, gvalid = compiled.finalize_slot(stage.carry, slot)
+            records = [(table.label(int(k)), float(v))
+                       for k, v in zip(gk[gvalid], gv[gvalid])]
+            records.sort(key=lambda kv: kv[0])
+        elif emit.kind == "top_k":
             ids, _vals, valid = compiled.top_k_slot(stage.carry, slot,
                                                     emit.rank_by)
             agg = compiled.read_slot(stage.carry, slot)
@@ -1015,8 +1059,8 @@ class StreamingCoordinator:
                 f"({len(self._pending_puts)} staged sink writes, "
                 f"{len(self._pending_stats)} deferred stats reads); "
                 "checkpoints must follow the batch-boundary drain")
-        leaves = [st.carry.to("cpu", copy=True).numpy()
-                  for st in self.stages]
+        leaves = [leaf.to("cpu", copy=True).numpy() for st in self.stages
+                  for leaf in _carry_leaves(st.carry)]
         buf = io.BytesIO()
         np.savez(buf, **{f"leaf{i}": leaf for i, leaf in enumerate(leaves)})
         self.store.put(_carry_key(self.prog.job_id), buf.getvalue())
@@ -1055,7 +1099,8 @@ class StreamingCoordinator:
                 f"{len(state['stages'])} stages but this program has "
                 f"{len(self.stages)}; the pipeline changed under the job")
         shapes = [tuple(s) for s in state["carry_shapes"]]
-        mine = [tuple(st.carry.shape) for st in self.stages]
+        mine = [tuple(leaf.shape) for st in self.stages
+                for leaf in _carry_leaves(st.carry)]
         if shapes != mine:
             raise ValueError(
                 f"checkpointed carry shapes {shapes} do not match this "
@@ -1063,11 +1108,13 @@ class StreamingCoordinator:
                 f"job {self.prog.job_id}")
         blob = self.store.get(_carry_key(self.prog.job_id))
         with np.load(io.BytesIO(blob)) as loaded:
-            arrays = [loaded[f"leaf{i}"] for i in range(len(self.stages))]
-        device = self.stages[0].carry.device
-        for st, carry in zip(self.stages,
-                             carries_from_reference(arrays, device)):
-            st.carry = carry
+            arrays = [loaded[f"leaf{i}"] for i in range(len(mine))]
+        at = 0
+        for st in self.stages:
+            n = len(_carry_leaves(st.carry))
+            st.carry = _restore_carry(st.carry, arrays[at:at + n],
+                                      st.compiled.device)
+            at += n
         for st, sdict in zip(self.stages, state["stages"]):
             st.tracker.load_state_dict(sdict["tracker"])
             for table, tdict in zip(self._unique_tables(st),

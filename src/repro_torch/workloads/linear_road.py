@@ -50,9 +50,17 @@ Two more programs read the same reports, with numpy oracles:
   pair a Linear Road-style toll check reads.  Not the benchmark's toll
   rule, whose LAV spans 5 minutes while its vehicle count spans 1 (one
   join has one window).
+* ``segment_median_pipeline`` — the median speed per segment over LAV's
+  window (``sliding(300, 60)``), in group mode: a median is the reduce a
+  combiner cannot fuse, so every report of a window is buffered on the
+  device (``capacity`` records per worker and window slot) and
+  ``median_reduce`` runs over each segment's full list when the window
+  finalizes.  Linear Road's statistic is the mean (LAV); the median is
+  the robust variant of it, over the same reports and windows.
 
 Every value they fold is integer-valued (counts, integer speeds), so the
-card's sinks equal the plain fold's byte for byte in any atomic order.
+card's sinks equal the plain fold's byte for byte in any atomic order,
+and a median of integer speeds is exact in float32.
 """
 
 from __future__ import annotations
@@ -60,7 +68,9 @@ from __future__ import annotations
 from collections import defaultdict
 
 import numpy as np
+import torch
 
+from ..engine.stages import INT32_MAX, sorted_runs
 from ..pipeline.graph import Pipeline, Windowing
 
 WINDOW_SIZE = 300.0         # LAV covers the previous 5 minutes ...
@@ -76,6 +86,10 @@ JITTER_SIGMA = 0.5
 FULL = {"n_xways": 50, "n_vehicles": 50_000, "minutes": 10}
 
 MINUTE = 60.0               # per-minute statistics (counts, toll inputs)
+#: segment_median_pipeline's records a (worker, window slot) buffer holds:
+#: a window holds about 500,000 reports at the full density, about 62,500
+#: for each of 8 workers — 2**17 leaves room for the hash partition's skew
+MEDIAN_CAPACITY = 1 << 17
 TOP_K = 100                 # congestion_chain: most congested segments
 XWAY_BUCKETS = 64           # congestion_chain branch (b): >= 50 xways
 
@@ -295,4 +309,78 @@ def toll_inputs_oracle(ts: np.ndarray, seg_id: np.ndarray,
         mean = np.float32(sums[f]) / np.float32(counts[f])
         out[(m + m0) * MINUTE][segment_label(key)] = [float(mean),
                                                       int(counts[f])]
+    return dict(out)
+
+
+# ---------------------------------------------------------------------------
+# segment_median_pipeline: the median speed per segment, in group mode
+# ---------------------------------------------------------------------------
+
+def median_reduce(keys: torch.Tensor, values: torch.Tensor,
+                  starts: torch.Tensor):
+    """Group reducer: the median of each key group's values over a
+    key-sorted, group-marked stream (the ``(keys, values, starts) -> (gk,
+    gv, gvalid)`` contract of ``engine.stages``), the mean of the two
+    middle values for an even count.  Values sort within their group by
+    two stable sorts (by value, then by group); everything stays on the
+    stream's device."""
+    n = keys.shape[0]
+    valid = keys != INT32_MAX
+    seg = torch.cumsum(starts, 0, dtype=torch.int64) - 1
+    seg = torch.where(valid, seg, n)
+    by_value = torch.argsort(values, stable=True)
+    order = by_value[torch.argsort(seg[by_value], stable=True)]
+    v = values[order]
+    s = seg[order]
+    counts, offsets = sorted_runs(s, n)
+    lo = torch.clamp(offsets + torch.div(counts - 1, 2,
+                                         rounding_mode="floor"), 0, n - 1)
+    hi = torch.clamp(offsets + torch.div(counts, 2, rounding_mode="floor"),
+                     0, n - 1)
+    med = (v[lo] + v[hi]) / 2.0
+    group_keys = torch.where(counts > 0,
+                             keys.to(torch.int32)[offsets.clamp(max=n - 1)],
+                             -1)
+    group_valid = (group_keys >= 0) & (counts > 0)
+    return group_keys, torch.where(group_valid, med, 0.0), group_valid
+
+
+def segment_median_pipeline(prefix: str, capacity: int = MEDIAN_CAPACITY,
+                            sink: str = "median-speed/") -> Pipeline:
+    """The median speed per segment over sliding 5-minute windows, as a
+    group-mode job (build it with ``build_options``)."""
+    return (Pipeline.from_source(prefix=prefix, batch_records=BATCH_RECORDS)
+            .key_by()
+            .window(Windowing.sliding(WINDOW_SIZE, WINDOW_SLIDE))
+            .reduce(median_reduce, mode="group", capacity=capacity)
+            .sink(sink))
+
+
+def median_oracle(ts: np.ndarray, seg_id: np.ndarray, speed: np.ndarray
+                  ) -> dict[float, dict[str, float]]:
+    """numpy oracle of ``segment_median_pipeline``: window start →
+    {segment label: median speed} over every report of every sliding
+    window containing it (assumes no report arrives later than the
+    allowed lateness).  Medians of integer speeds are halves of integers
+    at most 100, exact in float32."""
+    last = np.floor(ts / WINDOW_SLIDE).astype(np.int64)
+    first = np.floor((ts - WINDOW_SIZE) / WINDOW_SLIDE).astype(np.int64) + 1
+    n_keys = int(seg_id.max()) + 1
+    fanout = int(np.ceil(WINDOW_SIZE / WINDOW_SLIDE))
+    w = np.concatenate([last - j for j in range(fanout)])
+    k = np.tile(seg_id, fanout)
+    v = np.tile(speed, fanout)
+    keep = w >= np.tile(first, fanout)
+    w, k, v = w[keep], k[keep], v[keep]
+    w0 = int(w.min())
+    flat = (w - w0) * n_keys + k
+    order = np.lexsort((v, flat))
+    flat, v = flat[order], v[order]
+    groups, starts, counts = np.unique(flat, return_index=True,
+                                       return_counts=True)
+    med = (v[starts + (counts - 1) // 2] + v[starts + counts // 2]) / 2.0
+    out: dict[float, dict[str, float]] = defaultdict(dict)
+    for f, m in zip(groups.tolist(), med.tolist()):
+        widx, key = divmod(f, n_keys)
+        out[(widx + w0) * WINDOW_SLIDE][segment_label(key)] = m
     return dict(out)

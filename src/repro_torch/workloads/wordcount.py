@@ -25,6 +25,14 @@ shards on the device, about 2.5 GiB of UDF outputs, and a 4 KB result.
 Per-bucket counts stay near 2.7e5, far below 2^24, so float32 sums of
 ones are exact in any order: the result must equal the ``np.bincount``
 oracle exactly.
+
+``group_pipeline`` is the same count with the combiner off — the job of
+the paper's §IV-C run without its combiner (Fig. 6-8 measure the batch
+job both ways): ``reduce("sum", mode="group", capacity=C)``, so every
+token record crosses the grouping shuffle to its word's partition and is
+summed there, in place of one combined count a word per worker.  ``C``
+bounds what one worker sends to one partition; ``group_capacity`` sizes
+it from the shards so that nothing is dropped.
 """
 
 from __future__ import annotations
@@ -32,6 +40,7 @@ from __future__ import annotations
 import numpy as np
 
 from ..core.mapreduce import wordcount_map_factory
+from ..engine.stages import host_bucket
 from ..pipeline.graph import Pipeline
 
 NAME = "wordcount-hibench-large"
@@ -71,3 +80,28 @@ def oracle(shards: np.ndarray, vocab: int = VOCAB) -> np.ndarray:
     """Exact per-word counts of the valid (non-negative) tokens."""
     tokens = shards[..., 0].ravel()
     return np.bincount(tokens[tokens >= 0] % vocab, minlength=vocab)
+
+
+def group_pipeline(shards, capacity: int, vocab: int = VOCAB) -> Pipeline:
+    """The word count with the combiner off, as a group-mode array
+    pipeline over ``shards``; build it with ``num_buckets=vocab,
+    n_workers=len(shards)``."""
+    return (Pipeline.from_source(shards=shards)
+            .map(wordcount_map_factory(vocab))
+            .reduce("sum", mode="group", capacity=capacity))
+
+
+def group_capacity(shards: np.ndarray, vocab: int = VOCAB) -> int:
+    """The capacity at which ``group_pipeline`` drops nothing: the most
+    valid tokens one worker sends to one partition, where word ``w``'s
+    partition is ``hash(w) % n_workers`` (``host_bucket``, the device's
+    ``hash_partition``)."""
+    n_workers = shards.shape[0]
+    part = np.array([host_bucket(w, n_workers) for w in range(vocab)])
+    most = 0
+    for w in range(n_workers):
+        tokens = shards[w, :, 0]
+        per_word = np.bincount(tokens[tokens >= 0] % vocab, minlength=vocab)
+        most = max(most, int(np.bincount(part, weights=per_word,
+                                         minlength=n_workers).max()))
+    return max(most, 1)

@@ -138,13 +138,18 @@ def test_top_k_ties_break_toward_lower_bucket():
 
 
 def test_unported_shapes_raise_not_implemented():
+    """What is still unported is the simulated-worker and multi-process
+    backends (ROADMAP Queue A #11), for group plans as for the others;
+    group mode itself compiles (``test_torch_group.py``)."""
     ks, ws = KeySpace.dense(16), WindowSpec(100.0, 25.0, 8)
-    with pytest.raises(NotImplementedError, match="group mode"):
-        ExecutionPlan(ks, ReduceSpec(mode="group"), W,
-                      ws).compile(device="cpu")
-    with pytest.raises(NotImplementedError, match="group-mode array"):
-        ExecutionPlan(ks, ReduceSpec(mode="group"), W).compile(
-            lambda s: s, device="cpu")
+    group = ReduceSpec(mode="group", capacity=8)
+    with pytest.raises(NotImplementedError, match="Queue A #11"):
+        ExecutionPlan(ks, group, W, ws).compile(backend="vmap",
+                                                device="cpu")
+    with pytest.raises(NotImplementedError, match="Queue A #11"):
+        ExecutionPlan(ks, group, W).compile(lambda s: s,
+                                            backend="shard_map",
+                                            device="cpu")
     for backend in ("vmap", "shard_map"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             ExecutionPlan(ks, ReduceSpec(), W, ws).compile(backend=backend,

@@ -225,9 +225,11 @@ def test_n_workers_does_not_shape_the_fold(fanout, n_workers):
 
 
 def test_unported_pipeline_shapes_raise():
-    """Group mode is the one pipeline shape still unported; joins, tee
-    and chains past a reduce lower to stage DAGs (``test_torch_dag.py``,
-    ``test_torch_join.py`` hold them against the reference)."""
+    """Every pipeline shape lowers — joins, tee and chains past a reduce
+    to stage DAGs (``test_torch_dag.py``, ``test_torch_join.py``), group
+    mode to its plans (``test_torch_group.py``); what is left unported is
+    the simulated-worker and multi-process backends, and a reduce the
+    reference refuses raises its ``PipelineError``."""
     src = Pipeline.from_source(records=_events(n=10))
     chain = src.key_by().window(10.0).reduce("sum")
     assert chain.join(chain).build(device="cpu").is_join
@@ -237,12 +239,13 @@ def test_unported_pipeline_shapes_raise():
     assert len(teed.stages) == 3 and len(teed.edges) == 2
     assert chain.key_by().window(50.0).reduce("sum").build(
         device="cpu").is_multistage
-    with pytest.raises(NotImplementedError, match="group mode"):
+    with pytest.raises(PipelineError, match="group reduce kind"):
         src.key_by().window(10.0).reduce("median", mode="group",
                                          capacity=8).build(device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue A #8"):
+    with pytest.raises(NotImplementedError, match="Queue A #11"):
         Pipeline.from_source(shards=[1]).map(lambda s: s).reduce(
-            "median", mode="group", capacity=8).build(device="cpu")
+            "max", mode="group", capacity=8).build(device="cpu",
+                                                   backend="vmap")
     with pytest.raises(PipelineError, match="n_slots"):
         src.key_by().window(Windowing.sliding(20.0, 5.0)).reduce(
             "sum").build(device="cpu", n_slots=3)

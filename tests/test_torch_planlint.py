@@ -1,7 +1,8 @@
 """The port's planlint against the reference's: the same single-stage
 programs give the same diagnostics (rule id, level, message, location)
 for every rule a port plan can reach (PL001, PL002, PL004 — its DAG cases
-are in ``test_torch_dag.py`` — and PL005), and the
+are in ``test_torch_dag.py`` — and PL005; PL003's group-mode cases are in
+``test_torch_group.py``), and the
 explain report lists the same findings — array (batch) programs
 included, where only PL005 applies."""
 
@@ -86,7 +87,8 @@ def test_planlint_constants_match_engine_and_reference():
         == jstages.RAW_KEY_BITS == jplanlint.RAW_KEY_BITS
     assert planlint.COLLISION_WARN_P == jplanlint.COLLISION_WARN_P
     assert planlint.RESERVED_PREFIXES == jplanlint.RESERVED_PREFIXES
-    assert set(planlint.RULES) == {"PL001", "PL002", "PL004", "PL005"}
+    assert set(planlint.RULES) == {"PL001", "PL002", "PL003", "PL004",
+                                   "PL005"}
     for rule, text in planlint.RULES.items():
         assert jplanlint.RULES[rule] == text
     for args in [(10.0,), (10.0, None, 5.0), (60.0, 20.0), (300.0, 60.0, 5.0)]:
