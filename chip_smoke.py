@@ -27,14 +27,23 @@ card, phase by phase; any mismatch raises and the script exits non-zero:
    N = 2**22 rows, fan-out 5, 8 slots × 2**20 buckets (a 64 MiB carry, 80
    MiB of rows — bigger than the 50 MB L2) across {device wire, host wire}
    × {sum, count, min, max} × {dense, hashed} plus ``channel_base=2`` in a
-   4-channel carry, with late pairs and negative window indices; then the
+   4-channel carry (the paired float2 reduction) and ``channel_base=1`` in
+   a 3-channel carry (an odd C: the scalar pair), with late pairs and
+   negative window indices; then the
    join's geometry: a carry 4,099 buckets wider than the key space
    (``carry_buckets > num_buckets``, a narrow join side) for sum and count
    at channel bases 0 and 2, the rows past the key space untouched, and
    one 4-channel carry folded at base 0 and then at base 2, the second
    fold leaving channels 0-1 as the first left them; then at the main
    path's own shape (one 65,536-record Linear Road micro-batch).
-   Times are CUDA-event medians of 20 launches after warm-up.
+   The fold is called as the main path calls it, through a step of
+   ``make_fold_step``.  Times are CUDA-event medians of 20 calls after
+   warm-up; the device time and the device records a fold come from
+   torch.profiler (every record: kernels and any fill or set), and each
+   timed fold must put exactly one record on the card (one cooperative
+   launch, whatever the kind).  At the main shape also the host time a
+   call (``perf_counter`` over 1,000 calls, then one synchronize) and the
+   route read from the trace.
 3. Main path: ``linear-road-lav`` (see
    ``src/repro_torch/workloads/linear_road.py``: 50 expressways, 10,000
    segment keys, 50,000 vehicles, 1,000,000 position reports over 10
@@ -311,7 +320,8 @@ card, phase by phase; any mismatch raises and the script exits non-zero:
 
 Before the last line it prints one JSON object ``{"kernels": [...]}``
 (per kernel: launches on its main path, error, kernel / plain / bound /
-library times at its main path's shape); the last line is
+library times at its main path's shape; ``fused_fold``'s entry also has
+``host_us`` and ``device_ops_per_fold``); the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Exits non-zero without a result when torch sees no CUDA device or when the
 repository's sources are missing.  The kernels line's ``launches`` for the
@@ -344,6 +354,7 @@ SEED = 0
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3, NVIDIA data sheet
 FP32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
 REPS = 20
+HOST_CALLS = 1000               # fold calls timed on the host clock
 BIG_N = 1 << 22
 BIG_BUCKETS = 1 << 20
 FANOUT = 5
@@ -465,8 +476,7 @@ def _device_us(ev) -> float:
                    getattr(ev, "cuda_time_total", 0.0))
 
 
-def _kernel_device_us(torch, fn, reps: int = REPS,
-                      names=("fold_rows", "combine_extrema")) -> str:
+def _kernel_device_us(torch, fn, names, reps: int = REPS) -> str:
     """Device time of the named kernels per ``fn()`` call, from
     torch.profiler's CUDA trace; "not measured" when the trace holds no
     device time for them."""
@@ -480,6 +490,89 @@ def _kernel_device_us(torch, fn, reps: int = REPS,
     total = sum(_device_us(ev) for ev in prof.key_averages()
                 if any(n in ev.key for n in names))
     return f"{total / reps:.2f} us" if total > 0 else "not measured"
+
+
+def _device_records(torch, fn, reps: int = REPS) -> tuple:
+    """Per ``fn()`` call, from torch.profiler's CUDA trace: the device time
+    in us and the number of the records it puts on the card (kernels,
+    fills, sets, copies), and their names.  The profiler drops a record
+    now and then, so each name counts as its records a call rounded to a
+    whole number, each taking that name's mean time."""
+    from collections import defaultdict
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    by_name = defaultdict(list)
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA:
+            by_name[ev.name[:60]].append(_device_us(ev))
+    per_call = {name: round(len(times) / reps)
+                for name, times in by_name.items()}
+    return (sum(statistics.fmean(by_name[n]) * k
+                for n, k in per_call.items()),
+            sum(per_call.values()), sorted(by_name))
+
+
+def _fold_route(records: int, names) -> str:
+    """How a fold reached the card, read from its trace: one cooperative
+    kernel, or several device records (a fill before the kernel, ...)."""
+    if records == 1 and names and all("fold_kernel" in n for n in names):
+        return "one cooperative launch"
+    return f"{records:g} device records"
+
+
+def _fold_step(ops, kw, device):
+    """The fold as the main path calls it, ``call(rows, carry, minw)``: a
+    step of ``ops.make_fold_step`` (made once, as a plan makes it), or the
+    one-off ``ops.fold`` in a checkout that has no ``make_fold_step``."""
+    if not hasattr(ops, "make_fold_step"):
+        return lambda rows, carry, minw: ops.fold(rows, carry, minw, **kw)
+    step = ops.make_fold_step(**kw, device=device)
+    if kw["host_wire"]:
+        return lambda rows, carry, minw: step(rows, carry)
+    return step
+
+
+def fold_times(torch, ops, ref, rows, carry, minw, kw, *,
+               host_calls: int = 0) -> dict:
+    """The fold's numbers on one input, called as the main path calls it
+    (``_fold_step``): the wrapper's time a call (CUDA events, median of
+    ``REPS``), the device time and device records a fold (torch.profiler,
+    every record: the kernels and any fill or set), the route, the plain
+    version's time, one PyTorch call's (``_library_call``), the bound; with
+    ``host_calls``, the host time a call (``perf_counter`` over that many
+    calls, then one synchronize)."""
+    call = _fold_step(ops, kw, carry.device)
+    scratch = carry.clone()
+
+    def fn():
+        return call(rows, scratch, minw)
+
+    ms = _median_ms(fn)
+    device_us, records, names = _device_records(torch, fn)
+    plain_ms = _median_ms(lambda: ref(rows, carry, minw, **kw))
+    flat, vals = _expanded_pairs(rows, host_wire=kw["host_wire"],
+                                 min_window=minw,
+                                 num_buckets=kw["num_buckets"],
+                                 carry_buckets=kw["carry_buckets"],
+                                 hashed=kw["hashed"])
+    lib_ms = _median_ms(_library_call(carry.clone(), flat, vals, kw["kind"],
+                                      kw["channel_base"]))
+    bound, by = _bound_ms(rows, flat)
+    out = {"ms": ms, "device_us": device_us, "device_ops_per_fold": records,
+           "route": _fold_route(records, names), "device_records": names,
+           "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+           "library_ms": lib_ms, "cells_hit": _cells_hit(flat),
+           "live_pairs": int(flat.numel())}
+    if host_calls:
+        out["host_us"] = 1e3 * _host_ms(torch, fn, host_calls)
+    return out
 
 
 def _wire_rows(rng, n, *, host_wire, keymax):
@@ -566,7 +659,10 @@ def phase_kernel(torch, ops, ref, device) -> float:
     cases = [(hw, kind, hashed, 0, 2) for hw in (False, True)
              for kind in ("sum", "count", "min", "max")
              for hashed in (False, True)]
-    cases.append((False, "sum", False, 2, 4))
+    # the upper pair of a 4-channel carry (paired reduction), and an odd
+    # channel count at an odd base (the kernel's scalar pair)
+    cases += [(False, "sum", False, 2, 4), (False, "sum", False, 1, 3),
+              (True, "count", True, 1, 3)]
     for host_wire, kind, hashed, base, channels in cases:
         keymax = (1 << 24) if hashed else BIG_BUCKETS
         rows = torch.from_numpy(_wire_rows(rng, BIG_N, host_wire=host_wire,
@@ -600,26 +696,20 @@ def phase_kernel(torch, ops, ref, device) -> float:
             print(f"kernel-check {label}: bit-identical, stats "
                   f"{got_s.tolist()}")
             continue
-        scratch = carry0.clone()
-        ms = _median_ms(lambda: ops.fold(rows, scratch, minw, **kw))
-        plain_ms = _median_ms(lambda: ref(rows, carry0, minw, **kw))
-        flat, vals = _expanded_pairs(rows, host_wire=host_wire,
-                                     min_window=minw,
-                                     num_buckets=BIG_BUCKETS,
-                                     carry_buckets=BIG_BUCKETS,
-                                     hashed=hashed)
-        lib_ms = _median_ms(_library_call(carry0.clone(), flat, vals, kind,
-                                          base))
-        bound, by = _bound_ms(rows, flat)
-        device_us = _kernel_device_us(
-            torch, lambda: ops.fold(rows, scratch, minw, **kw))
+        t = fold_times(torch, ops, ref, rows, carry0, minw, kw)
+        if t["route"] != "one cooperative launch":
+            raise AssertionError(f"{label}: a fold put "
+                                 f"{t['device_ops_per_fold']:g} records on "
+                                 f"the card, not one: {t['device_records']}")
         print(f"kernel-check {label}: bit-identical, stats "
               f"{got_s.tolist()}; N={BIG_N} carry="
-              f"{N_SLOTS * BIG_BUCKETS}x{channels}: kernel {ms:.4f} ms "
-              f"(device time {device_us}), plain {plain_ms:.4f} ms, "
-              f"bound {bound:.4f} ms ({by}; {_cells_hit(flat)} "
-              f"cells hit by {flat.numel()} live pairs), scatter only "
-              f"{lib_ms:.4f} ms")
+              f"{N_SLOTS * BIG_BUCKETS}x{channels}: kernel {t['ms']:.4f} ms "
+              f"(device time {t['device_us']:.2f} us in "
+              f"{t['device_ops_per_fold']:g} device records a fold: "
+              f"{t['route']}), plain {t['plain_ms']:.4f} ms, bound "
+              f"{t['bound_ms']:.4f} ms ({t['bound_by']}; {t['cells_hit']} "
+              f"cells hit by {t['live_pairs']} live pairs), scatter only "
+              f"{t['library_ms']:.4f} ms")
     return max(worst, _join_cases(torch, ops, ref, device, rng))
 
 
@@ -703,7 +793,8 @@ def phase_kernel_main_shape(torch, ops, ref, lr, device) -> dict:
     line reports."""
     rows, carry, nb = lr_batch(torch, lr, device)
     kw = dict(fanout=FANOUT, n_slots=lr.N_SLOTS, num_buckets=nb,
-              carry_buckets=nb, hashed=False, host_wire=False, kind="sum")
+              carry_buckets=nb, channel_base=0, hashed=False,
+              host_wire=False, kind="sum")
     minw = -(2 ** 31)
     want_c, want_s = ref(rows, carry, minw, **kw)
     got_c, got_s = ops.fold(rows, carry.clone(), minw, **kw)
@@ -711,27 +802,27 @@ def phase_kernel_main_shape(torch, ops, ref, lr, device) -> dict:
     if not (torch.equal(got_c, want_c) and torch.equal(got_s, want_s)):
         raise AssertionError("fused_fold != plain version at the main "
                              "path's shape")
-    scratch = carry.clone()
-    ms = _median_ms(lambda: ops.fold(rows, scratch, minw, **kw))
-    plain_ms = _median_ms(lambda: ref(rows, carry, minw, **kw))
-    flat, vals = _expanded_pairs(rows, host_wire=False, min_window=minw,
-                                 num_buckets=nb, carry_buckets=nb,
-                                 hashed=False)
-    lib_ms = _median_ms(_library_call(carry.clone(), flat, vals, "sum", 0))
-    bound, by = _bound_ms(rows, flat)
-    device_us = _kernel_device_us(
-        torch, lambda: ops.fold(rows, scratch, minw, **kw))
+    t = fold_times(torch, ops, ref, rows, carry, minw, kw,
+                   host_calls=HOST_CALLS)
     print(f"kernel-check main-path shape rows={tuple(rows.shape)} carry="
           f"{tuple(carry.shape)} pairs={int(got_s[1])}: bit-identical; "
-          f"kernel {ms:.4f} ms per wrapper call (device time "
-          f"{device_us}, torch.profiler), plain "
-          f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({by}; "
-          f"{_cells_hit(flat)} of {carry.shape[0]} cells hit by "
-          f"{flat.numel()} live pairs), scatter only "
-          f"{lib_ms:.4f} ms")
-    return {"max_abs_err": float((got_c - want_c).abs().max()), "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
-            "library_ms": lib_ms}
+          f"kernel {t['ms']:.4f} ms per wrapper call (CUDA events), host "
+          f"{t['host_us']:.2f} us a call ({HOST_CALLS} calls, then one "
+          f"synchronize); device time {t['device_us']:.2f} us in "
+          f"{t['device_ops_per_fold']:g} device records a fold "
+          f"(torch.profiler: {', '.join(t['device_records'])}); route: "
+          f"{t['route']}; plain {t['plain_ms']:.4f} ms, bound "
+          f"{t['bound_ms']:.4f} ms ({t['bound_by']}; {t['cells_hit']} of "
+          f"{carry.shape[0]} cells hit by {t['live_pairs']} live pairs), "
+          f"scatter only {t['library_ms']:.4f} ms", flush=True)
+    if t["route"] != "one cooperative launch":
+        raise AssertionError(f"a fold put {t['device_ops_per_fold']:g} "
+                             f"records on the card, not one: "
+                             f"{t['device_records']}")
+    return {"max_abs_err": float((got_c - want_c).abs().max()),
+            **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                 "library_ms", "host_us",
+                                 "device_ops_per_fold")}}
 
 
 def phase_main_path(torch, ops, lr) -> int:
@@ -2670,8 +2761,7 @@ def phase_job_service(torch, ops, lr, device, full=None) -> int:
               if ev.device_type == DeviceType.CUDA]
     device_us = sum(_device_us(ev) for ev in events)
     fold_us = sum(_device_us(ev) for ev in events
-                  if any(k in ev.key for k in ("fold_rows",
-                                               "combine_extrema")))
+                  if "fold_kernel" in ev.key)
     jobs = server.jobs
     folds = sum(j.report.folds for j in jobs.values())
     if set(final.values()) != {"DONE"}:

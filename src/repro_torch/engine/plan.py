@@ -467,13 +467,13 @@ class CompiledStreamAggregate:
         self.plan = plan
         self.device = device
         self._buckets = plan.carry_buckets
-        self._geometry = dict(
+        self._fold = fused_fold.make_fold_step(
             fanout=ws.fanout if ws.fanout_on_device else 1,
             n_slots=ws.n_slots, num_buckets=plan.key_space.num_buckets,
             carry_buckets=plan.carry_buckets,
             channel_base=plan.reduce.channel_base,
             hashed=plan.key_space.is_hashed,
-            host_wire=not ws.fanout_on_device, kind="sum")
+            host_wire=not ws.fanout_on_device, kind="sum", device=device)
 
     def init_carry(self) -> torch.Tensor:
         """Zeroed carried window state — ``(n_slots * carry_buckets,
@@ -492,8 +492,8 @@ class CompiledStreamAggregate:
         there."""
         rows = _rows_to(rows, self.device)
         if not self.plan.window.fanout_on_device:
-            min_window = None
-        return fused_fold.fold(rows, carry, min_window, **self._geometry)
+            return self._fold(rows, carry)
+        return self._fold(rows, carry, min_window)
 
     def _slot_rows(self, carry: torch.Tensor, slot: int) -> torch.Tensor:
         nb = self._buckets
