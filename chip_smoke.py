@@ -317,6 +317,23 @@ card, phase by phase; any mismatch raises and the script exits non-zero:
    Group mode has no kernel in either package (the reference refuses
    ``backend="pallas"`` for group plans), so phases 19-20 add no entry
    to the kernels line.
+21. The backends (``engine/compile.py``).  ``linear-road-lav`` again (phase
+   3's log) under ``backend="vmap"`` with 8 simulated workers: sinks equal
+   phase 3's ``"fused"`` run window by window, ``fused_fold`` launches =
+   fold steps, and at the main shape one vmap fold step (the ``(8, per,
+   5)`` wire into the ``(8, per, 2)`` carry) puts exactly one record on
+   the card, the fold kernel — no copy of the carry or the wire — into the
+   same carry storage; its CUDA-event, device (torch.profiler) and host
+   times beside the fused step's.  Then ``backend="shard_map"`` in a world
+   of one NCCL rank (``init_process_group("nccl")`` through a file store):
+   the paper's word count (phase 6's 2**28 tokens as the flat data the
+   rank is handed) equal to phase 6b's counts with one ``hash_combine``
+   launch, and ``linear-road-lav`` equal to phase 3's sinks with
+   ``fused_fold`` launches = fold steps; every NCCL collective the runs
+   call (``all_to_all_single``, ``all_gather``, ``all_reduce``) counted,
+   and the shard_map fold step (partial, fold, reduce-scatter, stats
+   ``all_reduce``) timed against the fused one at the main shape.  Phase
+   21 adds no kernel: its launches are of the two already listed.
 
 Before the last line it prints one JSON object ``{"kernels": [...]}``
 (per kernel: launches on its main path, error, kernel / plain / bound /
@@ -825,9 +842,10 @@ def phase_kernel_main_shape(torch, ops, ref, lr, device) -> dict:
                                  "device_ops_per_fold")}}
 
 
-def phase_main_path(torch, ops, lr) -> int:
+def phase_main_path(torch, ops, lr) -> tuple:
     """Phase 3: linear-road-lav end to end on the card.  Returns the fused
-    fold's launches during the run."""
+    fold's launches during the run, the event log's store and the sink
+    objects."""
     from repro_torch.core import (AutoscalerConfig, MemoryStore,
                                   MetadataStore, MeteredPool, ServerlessPool)
     from repro_torch.pipeline import RunOptions
@@ -885,7 +903,7 @@ def phase_main_path(torch, ops, lr) -> int:
           f"{pool.meter.pool_seconds:.3f} s = {100 * share:.2f}% of wall "
           f"time; p50/p99 close-to-emit {report.p50_emit_latency * 1e3:.2f}/"
           f"{report.p99_emit_latency * 1e3:.2f} ms")
-    return launches
+    return launches, store, outputs
 
 
 def phase_sessions(ops) -> None:
@@ -3379,6 +3397,237 @@ def phase_group_wordcount(torch, hc, wc, shards, combined, combined_wall
           flush=True)
 
 
+def _by_window(outputs) -> dict:
+    """Sink objects keyed by their window (the job id taken out)."""
+    return {key.rsplit("/", 1)[1]: blob for key, blob in outputs.items()}
+
+
+def _drive_lav(torch, ops, lr, store, sinks, label, **build):
+    """linear-road-lav over phase 3's log under another backend: its sinks
+    must equal phase 3's window by window and every fold step must be one
+    ``fused_fold`` launch.  Returns the built program and the report."""
+    from repro_torch.core import MetadataStore
+    from repro_torch.pipeline import RunOptions
+    opts = lr.build_options(lr.FULL["n_xways"])
+    opts.update(build)
+    built = lr.lav_pipeline("linear-road/reports").build(
+        job_id=f"linear-road-lav-{label}", **opts)
+    ops.fold.launches = 0
+    report = built.run(store=store, meta=MetadataStore(),
+                       options=RunOptions(overlap=True))
+    launches = ops.fold.launches
+    if report.error is not None:
+        raise AssertionError(f"{label}: {report.error}")
+    got = _by_window(built.collect_outputs(store))
+    if got != _by_window(sinks):
+        bad = sorted(k for k in set(got) | set(_by_window(sinks))
+                     if got.get(k) != _by_window(sinks).get(k))[:3]
+        raise AssertionError(f"{label}: sinks differ from the fused run's "
+                             f"at {bad}")
+    if launches != report.folds or report.folds < report.batches:
+        raise AssertionError(f"{label}: fused_fold launched {launches} "
+                             f"times for {report.folds} fold steps")
+    print(f"backends {label} linear-road-lav: {report.records_in} records "
+          f"in {report.wall_time:.3f} s = {report.records_per_sec:.0f} "
+          f"records/s; {len(got)} windows == the fused run's; "
+          f"{report.folds} fold steps, {launches} fused_fold launches",
+          flush=True)
+    return built, report
+
+
+def _step_times(torch, ops, step, rows, carry, minw,
+                host_calls: int = 1000) -> dict:
+    """One plan's fold step at the main shape: CUDA-event median, host time
+    a call (``perf_counter`` over ``host_calls`` calls, then a
+    synchronize), and per call the ``fused_fold`` launches and the
+    caching allocator's allocations (a copy of the carry or the wire would
+    be one more)."""
+    def fn():
+        return step(rows, carry, minw)
+    ms = _median_ms(fn)
+    torch.cuda.synchronize()
+    allocs = torch.cuda.memory_stats().get("allocation.all.allocated", 0)
+    launches = ops.fold.launches
+    t0 = time.perf_counter()
+    for _ in range(host_calls):
+        fn()
+    host_us = (time.perf_counter() - t0) / host_calls * 1e6
+    torch.cuda.synchronize()
+    return {"ms": ms, "host_us": host_us,
+            "launches": (ops.fold.launches - launches) / host_calls,
+            "allocs": (torch.cuda.memory_stats().get(
+                "allocation.all.allocated", 0) - allocs) / host_calls}
+
+
+def _profiled_steps(torch, steps: dict, reps: int = REPS) -> dict:
+    """Every step of ``steps`` (label → call) ``reps`` times inside
+    ``record_function(label)`` ranges of ONE torch.profiler session (CPU
+    and CUDA; a later session in a long process has been seen to record
+    nothing): per label the device records a call (matched to the calls
+    by CUPTI correlation id, ``_launched_in``), their names and their
+    device time a call.  Each step also runs ``reps`` times unlabelled at
+    the session's start: the trace's first milliseconds have come back
+    without device records."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    for fn in steps.values():
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for fn in steps.values():
+            for _ in range(reps):
+                fn()
+        torch.cuda.synchronize()
+        for label, fn in steps.items():
+            for _ in range(reps):
+                with record_function(label):
+                    fn()
+            torch.cuda.synchronize()
+    out = {}
+    for label in steps:
+        inside, n_ranges, _ = _launched_in(prof, label)
+        out[label] = {"records": len(inside) / max(n_ranges, 1),
+                      "names": sorted({ev.name()[:48] for ev in inside}),
+                      "device_us": sum(ev.duration_ns() for ev in inside)
+                      / 1e3 / max(n_ranges, 1)}
+    return out
+
+
+def _times_text(t, d=None) -> str:
+    text = (f"{t['ms']:.4f} ms a step (events), host {t['host_us']:.1f} us "
+            f"a call, {t['launches']:g} fused_fold launch(es) and "
+            f"{t['allocs']:g} allocation(s) a call")
+    if d is not None:
+        text += (f", device {d['device_us']:.2f} us in {d['records']:g} "
+                 f"record(s) {d['names']}")
+    return text
+
+
+class _Collectives:
+    """Counts the ``torch.distributed`` calls the worker axis makes while
+    it is entered (the module attributes are swapped for counting
+    wrappers, and put back on exit)."""
+
+    NAMES = ("all_to_all_single", "all_gather", "all_reduce")
+
+    def __init__(self, dist):
+        self.dist = dist
+        self.counts = dict.fromkeys(self.NAMES, 0)
+
+    def __enter__(self):
+        self.saved = {n: getattr(self.dist, n) for n in self.NAMES}
+        for name, fn in self.saved.items():
+            def counted(*args, _fn=fn, _name=name, **kwargs):
+                self.counts[_name] += 1
+                return _fn(*args, **kwargs)
+            setattr(self.dist, name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.dist, name, fn)
+
+
+def phase_backends(torch, ops, hc, lr, wc, store, sinks, shards, counts,
+                   device) -> None:
+    """Phase 21: ``backend="vmap"`` and ``backend="shard_map"`` (a world of
+    one NCCL rank) on the card, each against the fused runs of phases 3
+    and 6b."""
+    import tempfile
+
+    import torch.distributed as dist
+    n_workers = lr.build_options(lr.FULL["n_xways"])["n_workers"]
+    fused_built = lr.lav_pipeline("linear-road/reports").build(
+        device=device, job_id="linear-road-lav-steps",
+        **lr.build_options(lr.FULL["n_xways"]))
+    vmap_built, _ = _drive_lav(torch, ops, lr, store, sinks, "vmap",
+                               device=device, backend="vmap")
+    rows, carry, _nb = lr_batch(torch, lr, device)
+    minw = -(2 ** 31)
+    fused = fused_built.stages[0].sides[0].compiled
+    vmapped = vmap_built.stages[0].sides[0].compiled
+    vrows = rows.view(n_workers, -1, rows.shape[1])
+    vcarry = vmapped.init_carry()
+    fcarry = carry.clone()
+    ptr = vcarry.data_ptr()
+    ft = _step_times(torch, ops, fused.step, rows, fcarry, minw)
+    vt = _step_times(torch, ops, vmapped.step, vrows, vcarry, minw)
+    out, _ = vmapped.step(vrows, vcarry, minw)
+    if out is not vcarry or vcarry.data_ptr() != ptr:
+        raise AssertionError("the vmap step did not fold in place")
+    if vt["launches"] != 1 or vt["allocs"] != ft["allocs"]:
+        raise AssertionError(f"a vmap fold step made {vt['launches']} "
+                             f"fused_fold launches and {vt['allocs']} "
+                             f"allocations (fused: {ft['allocs']}): not one "
+                             f"launch without a copy")
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_pg_")
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{root}/pg",
+                            rank=0, world_size=1)
+    try:
+        with _Collectives(dist) as coll:
+            data = torch.from_numpy(shards.reshape(-1, shards.shape[-1]))
+            built = wc.pipeline(shards).build(
+                num_buckets=wc.VOCAB, n_workers=1, device=device,
+                backend="shard_map", job_id=f"{wc.NAME}-shard_map")
+            hc.combine.launches = 0
+            wall, (got, stats) = _timed_run(torch, built, data)
+            launches = hc.combine.launches
+            if launches != 1:
+                raise AssertionError(f"shard_map word count: {launches} "
+                                     f"hash_combine launches, not 1")
+            if not torch.equal(got.cpu(), counts):
+                raise AssertionError("shard_map word counts differ from "
+                                     "phase 6b's")
+            if int(stats.sent) != data.shape[0]:
+                raise AssertionError(f"shard_map sent {int(stats.sent)}")
+            wall2, (got2, _) = _timed_run(torch, built, data)
+            if not torch.equal(got2.cpu(), counts):
+                raise AssertionError("a second shard_map word count "
+                                     "differs")
+            print(f"backends shard_map (world of 1, NCCL) {wc.NAME}: "
+                  f"{data.shape[0]} tokens in {wall:.4f} s, then "
+                  f"{wall2:.4f} s (host data handed over; the first run's "
+                  f"first collective also sets NCCL up); counts == phase "
+                  f"6b's; {launches} hash_combine launch a run; "
+                  f"collectives {coll.counts} over the two runs",
+                  flush=True)
+        with _Collectives(dist) as coll:
+            sm_built, report = _drive_lav(
+                torch, ops, lr, store, sinks, "shard_map", device=device,
+                backend="shard_map", n_workers=1)
+            print(f"backends shard_map linear-road-lav collectives "
+                  f"{coll.counts} ({report.folds} fold steps, "
+                  f"{report.windows_emitted} windows)", flush=True)
+        sharded = sm_built.stages[0].sides[0].compiled
+        scarry = sharded.init_carry()
+        st = _step_times(torch, ops, sharded.step, rows, scarry, minw)
+        prof = _profiled_steps(torch, {
+            "fused step": lambda: fused.step(rows, fcarry, minw),
+            "vmap step": lambda: vmapped.step(vrows, vcarry, minw),
+            "shard_map step": lambda: sharded.step(rows, scarry, minw)})
+    finally:
+        dist.destroy_process_group()
+    pf, pv = prof["fused step"], prof["vmap step"]
+    if pf["records"] and (round(pv["records"]) != 1 or not all(
+            "fold_kernel" in n for n in pv["names"])):
+        raise AssertionError(f"a vmap fold step put {pv['records']:g} "
+                             f"records on the card ({pv['names']}), not the "
+                             f"one fold kernel")
+    traced = "" if pf["records"] else (" (the trace recorded no device "
+                                       "record: device time not measured)")
+    print(f"backends fold step at the main shape ({tuple(rows.shape)} wire, "
+          f"{n_workers} workers): fused {_times_text(ft, pf)}; vmap "
+          f"{_times_text(vt, pv)}, carry {tuple(vcarry.shape)} folded in "
+          f"place{traced}", flush=True)
+    print(f"backends fold step at the main shape, world of 1: shard_map "
+          f"{_times_text(st, prof['shard_map step'])}; the partial, "
+          f"reduce-scatter and stats all_reduce add "
+          f"{st['ms'] - ft['ms']:.4f} ms a step (events), "
+          f"{st['host_us'] - ft['host_us']:.1f} us of host", flush=True)
+
+
 def main(argv=None) -> int:
     global SEED
     parser = argparse.ArgumentParser(description="Build, check and drive "
@@ -3442,7 +3691,7 @@ def main(argv=None) -> int:
     worst = phase_kernel(torch, ops, fused_streaming_fold_ref, device)
     main_shape = phase_kernel_main_shape(torch, ops, fused_streaming_fold_ref,
                                          lr, device)
-    launches = phase_main_path(torch, ops, lr)
+    launches, lr_store, lr_sinks = phase_main_path(torch, ops, lr)
     phase_sessions(ops)
 
     hc_worst = phase_hash_combine(torch, hc, hash_combine_ref, device)
@@ -3484,7 +3733,10 @@ def main(argv=None) -> int:
     phase_segment_median(torch, ops, lr)
     torch.cuda.empty_cache()
     phase_group_wordcount(torch, hc, wc, shards, hc_counts, hc_wall)
-    del shards
+    torch.cuda.empty_cache()
+    phase_backends(torch, ops, hc, lr, wc, lr_store, lr_sinks, shards,
+                   hc_counts, device)
+    del shards, lr_store
 
     kernel = {"name": "fused_fold", "route": "cuda",
               "source": "src/repro_torch/kernels/fused_fold/csrc/"

@@ -8,9 +8,8 @@ which has no JAX in these modules):
   package), rpc (the job service's socket transport).
 
 Device plane: ``mapreduce`` holds the word-count UDF for the port's array
-pipeline.  The reference's device-engine streaming helpers
-(``DeviceJobConfig``, incremental steps, window-slot carries) belong to
-ROADMAP Queue A #11 and are not exported here.
+pipeline and the reference's device-engine streaming helpers
+(``DeviceJobConfig``, incremental steps, window-slot carries).
 """
 
 from .autoscaler import (AutoscalerConfig, ComputeMeter, MeteredPool,
@@ -19,6 +18,9 @@ from .client import Job, JobServiceClient, MapReduce
 from .coordinator import Coordinator, JobReport, JobState
 from .events import CloudEvent, EventBus
 from .job import JobConfig, make_wordcount_job
+from .mapreduce import (DeviceJobConfig, clear_window_slot, init_window_carry,
+                        make_incremental_step, read_window_slot,
+                        segment_reduce)
 from .metadata import MetadataStore
 from .rpc import FrameClient, FrameServer, RPCError
 from .splitter import ByteRange, split_object, split_prefix
@@ -30,7 +32,9 @@ __all__ = [
     "AutoscalerConfig", "ComputeMeter", "MeteredPool", "ServerlessPool",
     "Job", "MapReduce", "Coordinator",
     "JobReport", "JobState", "CloudEvent", "EventBus", "JobConfig",
-    "make_wordcount_job", "FrameClient", "FrameServer", "RPCError",
+    "make_wordcount_job", "DeviceJobConfig", "segment_reduce",
+    "make_incremental_step", "init_window_carry", "read_window_slot",
+    "clear_window_slot", "FrameClient", "FrameServer", "RPCError",
     "MetadataStore", "ByteRange", "split_object", "split_prefix", "FileStore",
     "MemoryStore", "NamespacedStore", "ObjectStore", "QuotaExceeded",
     "JobServiceClient", "read_final_output", "run_mapper", "run_reducer",

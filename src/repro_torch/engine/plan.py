@@ -39,9 +39,24 @@ A windowed group plan compiles to a ``CompiledStreamGroup``: its carry is
 the reference's ``vmap`` layout, fixed-capacity record buffers per
 (worker, window slot), and the reducer runs over each key's buffered
 values when a window finalizes.  Group mode has no kernel in either
-package; its stages are plain tensor ops on the plan's device.  The
-simulated-worker and multi-process backends are not ported yet; asking
-for them raises ``NotImplementedError`` naming the ``ROADMAP.md`` item.
+package; its stages are plain tensor ops on the plan's device.
+
+``compile(backend=...)`` picks where the workers live
+(``engine.compile``).  ``"fused"``, the default, is the above: a
+streaming fold has no worker axis.  ``"vmap"`` simulates ``n_workers``
+workers on the device in the reference's ``vmap`` layouts: an aggregate
+carry ``(W, n_slots * carry_buckets / W, C)`` and wire ``(W, per, 4|5)``,
+which are the flat slab and wire reshaped (worker ``w`` owns rows ``[w *
+per, (w + 1) * per)``), so the fold is still one ``fused_fold`` launch
+over a contiguous view.  ``"shard_map"`` runs one ``torch.distributed``
+rank a worker (``group=``, or the default group): each rank holds its
+``(per, C)`` share of the flat carry, folds its shard of the flat wire
+into a partial of the whole carry and reduce-scatters it; a group
+stage's rank holds its ``(n_slots, capacity)`` share of ``(W * n_slots,
+capacity)`` and exchanges with ``all_to_all``; a batch plan maps the
+rank's shard, combines it with ``hash_combine`` and reduce-scatters.
+Reads of a window gather it from every rank, so every rank sees the same
+finalized windows.
 """
 
 from __future__ import annotations
@@ -55,14 +70,12 @@ import torch
 
 from ..kernels.fused_fold import ops as fused_fold
 from . import stages
+from .compile import BACKENDS, worker_axis
 
-#: the one backend the port has: the fused fold over a flat carry slab
+#: the default backend: the fused fold over a flat carry slab
 BACKEND = "fused"
-#: reference backends still to port, with the ROADMAP item that queues them
-_UNPORTED_BACKENDS = {
-    "vmap": "Queue A #11 (vmap / shard_map backends)",
-    "shard_map": "Queue A #11 (vmap / shard_map backends)",
-}
+INT32_MIN = -(2 ** 31)
+INT32_MAX = 2 ** 31 - 1
 
 
 def resolve_device(device) -> torch.device:
@@ -222,9 +235,10 @@ class ExecutionPlan:
     """One device MapReduce job, declaratively.  ``compile()`` lowers it.
     A batch plan has ``n_workers`` worker shards and pads its bucket space
     to a multiple of it; a group plan, batch or windowed, keeps one
-    partition a worker.  A streaming aggregate plan ignores it: the fused
-    fold runs over the whole flat carry with no worker axis until the
-    ``vmap``/``shard_map`` slice (ROADMAP Queue A #11)."""
+    partition a worker.  A streaming aggregate plan's carry is split into
+    ``n_workers`` owner slices under ``"vmap"`` and ``"shard_map"``; under
+    ``"fused"`` the fold runs over the whole flat carry with no worker
+    axis."""
 
     key_space: KeySpace
     reduce: ReduceSpec
@@ -239,21 +253,21 @@ class ExecutionPlan:
         return self.reduce.carry_buckets or self.key_space.num_buckets
 
     def compile(self, map_fn: Callable | None = None, *,
-                backend: str = BACKEND, device="cuda", finalize: bool = True
-                ) -> ("CompiledStreamAggregate | CompiledStreamGroup | "
-                      "CompiledBatchPlan"):
+                backend: str = BACKEND, device="cuda", finalize: bool = True,
+                group=None) -> ("CompiledStreamAggregate | "
+                                "CompiledStreamGroup | CompiledBatchPlan"):
         """Lower the plan onto ``device``: a batch plan (``window=None``)
         with its map UDF to a ``CompiledBatchPlan``, a windowed aggregate
         (or top-k) plan to a ``CompiledStreamAggregate``, a windowed group
         plan to a ``CompiledStreamGroup``.  ``finalize`` (batch only)
-        gathers the workers' results into one."""
+        gathers the workers' results into one.  ``backend`` is one of
+        ``engine.compile.BACKENDS``; ``group`` is the ``shard_map``
+        backend's process group (default: the initialised default
+        group, which must have ``n_workers`` ranks)."""
         rs = self.reduce
-        if backend in _UNPORTED_BACKENDS:
-            raise not_ported(f"backend={backend!r}",
-                             _UNPORTED_BACKENDS[backend])
-        if backend != BACKEND:
-            raise ValueError(f"unknown backend {backend!r} (the port has "
-                             f"{BACKEND!r})")
+        if backend not in BACKENDS:
+            raise ValueError(f"unknown backend {backend!r} (expected one of "
+                             f"{BACKENDS})")
         if rs.mode not in ("aggregate", "group", "top_k"):
             raise ValueError(f"unknown reduce mode {rs.mode!r}")
         if rs.mode == "group" and rs.capacity <= 0:
@@ -279,8 +293,10 @@ class ExecutionPlan:
             if rs.mode == "top_k" and rs.k > self.key_space.num_buckets:
                 raise ValueError("top_k k exceeds the bucket space")
             stages.resolve_combine_fn(rs.combine_fn)    # validate early
-            return CompiledBatchPlan(self, map_fn, resolve_device(device),
-                                     finalize)
+            dev = resolve_device(device)
+            return CompiledBatchPlan(self, map_fn, dev, finalize,
+                                     worker_axis(backend, self.n_workers,
+                                                 group, dev))
         if map_fn is not None:
             raise ValueError("the fused fold decodes the standard wire "
                              "in-kernel; a custom map_fn does not apply")
@@ -299,13 +315,33 @@ class ExecutionPlan:
             if not self.window.fanout_on_device:
                 raise ValueError("windowed group mode runs with on-device "
                                  "fan-out only")
-            return CompiledStreamGroup(self, resolve_device(device))
-        return CompiledStreamAggregate(self, resolve_device(device))
+        elif backend != "fused" and (self.window.n_slots * self.carry_buckets
+                                     ) % self.n_workers:
+            raise ValueError("n_slots * carry bucket width must divide by "
+                             "n_workers")
+        dev = resolve_device(device)
+        axis = worker_axis(backend, self.n_workers, group, dev)
+        if rs.mode == "group":
+            return CompiledStreamGroup(self, dev, axis)
+        return CompiledStreamAggregate(self, dev, axis)
 
 
 # ---------------------------------------------------------------------------
 # Batch lowering (one-shot jobs)
 # ---------------------------------------------------------------------------
+
+def streaming_record_map(shard: torch.Tensor):
+    """Host-fan-out wire decode: ``shard`` is a ``(records, 4)`` float32
+    tensor of ``[window_slot, key, value, valid]`` rows.  Emits int32
+    slots and keys, ``(records, 2)`` ``[value, 1]`` value channels (count,
+    sum and mean all come out of one carried pair) and the valid mask —
+    the reference's decode, which the fused fold does in-kernel."""
+    slots = shard[:, 0].to(torch.int32)
+    keys = shard[:, 1].to(torch.int32)
+    valid = shard[:, 3] > 0
+    values = torch.stack([shard[:, 2], torch.ones_like(shard[:, 2])], dim=-1)
+    return slots, keys, values, valid
+
 
 def map_shards(shards: torch.Tensor, map_fn, n_workers: int):
     """The UDF on each worker's shard, its ``(keys, values, valid)``
@@ -326,93 +362,100 @@ def map_shards(shards: torch.Tensor, map_fn, n_workers: int):
 
 
 def _batch_body(shards: torch.Tensor, *, plan: ExecutionPlan, map_fn,
-                finalize: bool):
-    """Map every worker's shard, then one aggregating shuffle over all of
-    their records, or the grouping shuffle over the worker axis.  Returns
-    ``(result, ShuffleStats)`` shaped as the reference's ``vmap`` backend
-    returns them: the padded bucket vector (``finalize``), or its
-    ``(n_workers, padded / n_workers, ...)`` per-worker slices; in group
-    mode the ``(group_keys, group_values, group_valid)`` triple, every
-    worker's ``n_workers * capacity`` groups concatenated in worker order
-    (``finalize``) or stacked ``(n_workers, n_workers * capacity)``."""
+                finalize: bool, axis):
+    """Map the local workers' shards (``(local, ...)``), then one
+    aggregating shuffle over their records, or the grouping shuffle over
+    the worker axis.  Returns ``(result, ShuffleStats)`` shaped as the
+    reference's ``vmap`` backend returns them: the padded bucket vector
+    (``finalize``), or the local workers' ``(local, padded / n_workers,
+    ...)`` owner slices; in group mode the ``(group_keys, group_values,
+    group_valid)`` triple, every worker's ``n_workers * capacity`` groups
+    concatenated in worker order (``finalize``) or the local workers'
+    stacked ``(local, n_workers * capacity)``."""
     ks, rs, n_workers = plan.key_space, plan.reduce, plan.n_workers
-    keys, values, valid = map_shards(shards, map_fn, n_workers)
+    keys, values, valid = map_shards(shards, map_fn, axis.local)
     raw = keys.to(torch.int32)
     buckets = stages.bucketize(raw, ks.num_buckets, hashed=ks.is_hashed)
     collisions = None
     if ks.is_hashed and ks.track_collisions:
-        distinct = stages.distinct_keys_per_bucket(raw, valid,
-                                                   ks.num_buckets)
+        distinct = stages.distinct_keys_per_bucket(
+            raw.reshape(axis.local, -1), valid.reshape(axis.local, -1), axis,
+            ks.num_buckets)
         collisions = torch.clamp(distinct - 1, min=0)
     if rs.mode == "group":
         return _batch_group(buckets, values, valid, plan=plan,
-                            finalize=finalize, collisions=collisions)
-    padded = ks.padded(n_workers)
-    agg = stages.shuffle_aggregate(buckets, values, padded, valid=valid,
-                                   combine_fn=rs.combine_fn)
+                            finalize=finalize, collisions=collisions,
+                            axis=axis)
+    part = stages.shuffle_aggregate(buckets, values, axis,
+                                    ks.padded(n_workers), valid=valid,
+                                    combine_fn=rs.combine_fn)
     stats = stages.ShuffleStats(
-        torch.sum(valid, dtype=torch.int32),
-        torch.zeros((), dtype=torch.int32, device=agg.device), collisions)
+        axis.psum(torch.sum(valid, dtype=torch.int32)),
+        torch.zeros((), dtype=torch.int32, device=part.device), collisions)
     if finalize:
-        return agg, stats
-    return agg.reshape((n_workers, padded // n_workers)
-                       + tuple(agg.shape[1:])), stats
+        return axis.all_gather(part), stats
+    return part, stats
 
 
 def _batch_group(buckets: torch.Tensor, values: torch.Tensor,
                  valid: torch.Tensor, *, plan: ExecutionPlan, finalize: bool,
-                 collisions):
-    """The group-mode batch body after the map: every worker's records
-    (worker-major, as ``map_shards`` concatenates them) through the
-    grouping shuffle, then the reducer on each worker's merged stream —
-    the user reducer sees one worker's stream at a time, as under the
+                 collisions, axis):
+    """The group-mode batch body after the map: the local workers'
+    records (worker-major, as ``map_shards`` concatenates them) through
+    the grouping shuffle, then the reducer on each worker's merged stream
+    — the user reducer sees one worker's stream at a time, as under the
     reference's ``vmap``."""
-    rs, n_workers = plan.reduce, plan.n_workers
+    rs, n_local = plan.reduce, axis.local
     vshape = tuple(values.shape[1:])
     out_k, out_v, starts, xstats = stages.shuffle_group(
-        buckets.reshape(n_workers, -1),
-        values.reshape((n_workers, -1) + vshape), n_workers, rs.capacity,
-        valid=valid.reshape(n_workers, -1))
+        buckets.reshape(n_local, -1),
+        values.reshape((n_local, -1) + vshape), plan.n_workers, rs.capacity,
+        valid=valid.reshape(n_local, -1), axis=axis)
     groups = [stages.apply_reduce_fn(rs.reduce_fn, out_k[w], out_v[w],
-                                     starts[w]) for w in range(n_workers)]
+                                     starts[w]) for w in range(n_local)]
     gk, gv, gvalid = (torch.stack([g[i] for g in groups]) for i in range(3))
-    stats = stages.ShuffleStats(torch.sum(xstats.sent, dtype=torch.int32),
-                                torch.sum(xstats.dropped, dtype=torch.int32),
-                                collisions)
+    stats = stages.ShuffleStats(
+        axis.psum(torch.sum(xstats.sent, dtype=torch.int32)),
+        axis.psum(torch.sum(xstats.dropped, dtype=torch.int32)), collisions)
     if finalize:
-        return (gk.reshape(-1), gv.reshape((-1,) + tuple(gv.shape[2:])),
-                gvalid.reshape(-1)), stats
+        return (axis.all_gather(gk), axis.all_gather(gv),
+                axis.all_gather(gvalid)), stats
     return (gk, gv, gvalid), stats
 
 
 class CompiledBatchPlan:
     """One-shot lowering: ``run(shards) -> (result, ShuffleStats)``.
 
-    ``shards`` is ``(n_workers, ...)``: a tensor, or a numpy array copied
-    once to the plan's device.  The aggregate result is the padded dense
-    bucket vector (``finalize=True``) or the per-worker slices of it; a
-    top-k plan returns ``(bucket_ids, values, valid)`` of length ``k``
-    over the unpadded vector; a group plan returns the ``(group_keys,
+    ``shards`` is ``(n_workers, ...)`` — under ``"shard_map"`` this rank's
+    one shard — a tensor, or a numpy array copied once to the plan's
+    device.  The aggregate result is the padded dense bucket vector
+    (``finalize=True``) or the local workers' owner slices of it; a top-k
+    plan returns ``(bucket_ids, values, valid)`` of length ``k`` over the
+    unpadded vector; a group plan returns the ``(group_keys,
     group_values, group_valid)`` triple.  Results and stats stay on the
-    device.
+    device; with ``finalize`` every rank gets the same ones.
     """
 
     def __init__(self, plan: ExecutionPlan, map_fn: Callable,
-                 device: torch.device, finalize: bool):
+                 device: torch.device, finalize: bool, axis):
         self.plan = plan
         self.map_fn = map_fn
         self.device = device
         self.finalize = finalize
+        self.axis = axis
 
     def run(self, data):
-        """Run the job once over ``data``'s worker shards."""
+        """Run the job once over ``data``'s worker shards (this rank's
+        shard under ``"shard_map"``)."""
         if isinstance(data, torch.Tensor):
             shards = data.to(self.device)
         else:
             shards = torch.from_numpy(np.ascontiguousarray(data)).to(
                 self.device)
+        if not self.axis.simulated:
+            shards = shards.unsqueeze(0)        # the rank's one shard
         out, stats = _batch_body(shards, plan=self.plan, map_fn=self.map_fn,
-                                 finalize=self.finalize)
+                                 finalize=self.finalize, axis=self.axis)
         rs = self.plan.reduce
         if rs.mode == "top_k":
             kind = rs.reduce_fn if isinstance(rs.reduce_fn, str) else "sum"
@@ -444,13 +487,21 @@ def _rows_to(rows, device: torch.device) -> torch.Tensor:
 
 
 class CompiledStreamAggregate:
-    """Streaming aggregate lowering: a flat dense carry over the
+    """Streaming aggregate lowering: a dense carry over the flattened
     ``(window_slot, bucket)`` id space, folded once per micro-batch by the
     fused fold.
 
     ``step(rows, carry[, min_window]) -> (carry, stats)`` where stats is
     an int32 ``[late_pairs, folded_pairs, 0]`` tensor on the carry's
-    device, left there so the caller decides when to read it.
+    device, left there so the caller decides when to read it.  The
+    layouts follow the backend (the module docstring): ``"fused"`` takes
+    the flat ``(R, 4|5)`` wire into the flat ``(n_slots * carry_buckets,
+    C)`` carry; ``"vmap"`` the ``(W, per, 4|5)`` wire into the ``(W,
+    n_slots * carry_buckets / W, C)`` carry, both folded as their flat
+    views in one launch; ``"shard_map"`` this rank's ``(per, 4|5)`` shard
+    of the flat wire into its ``(n_slots * carry_buckets / W, C)`` share
+    of the carry, through a partial of the whole carry (zeros, the sum's
+    identity), one reduce-scatter and a sum of the stats over the ranks.
 
     The carry is updated **in place**: ``step``, ``clear_slot`` and the
     cell ops write into the tensor they are given and return it.  That
@@ -459,14 +510,17 @@ class CompiledStreamAggregate:
     and is safe because every drive loop rebinds its carry from the result
     (``stage.carry = step(...)``) and never reads the argument again.
     Reads (``read_slot``, ``read_cell``, ``top_k_slot``) return host
-    copies.
+    copies; under ``"shard_map"`` they gather the carry from every rank,
+    so every rank reads the same window.
     """
 
-    def __init__(self, plan: ExecutionPlan, device: torch.device):
+    def __init__(self, plan: ExecutionPlan, device: torch.device, axis):
         ws = plan.window
         self.plan = plan
         self.device = device
+        self.axis = axis
         self._buckets = plan.carry_buckets
+        self._rows = ws.n_slots * plan.carry_buckets
         self._fold = fused_fold.make_fold_step(
             fanout=ws.fanout if ws.fanout_on_device else 1,
             n_slots=ws.n_slots, num_buckets=plan.key_space.num_buckets,
@@ -476,12 +530,12 @@ class CompiledStreamAggregate:
             host_wire=not ws.fanout_on_device, kind="sum", device=device)
 
     def init_carry(self) -> torch.Tensor:
-        """Zeroed carried window state — ``(n_slots * carry_buckets,
-        channels)`` float32, ``[sum, count]`` per plan (both sides' pairs
-        for a join, which shares one carry) — on the plan's device."""
-        return torch.zeros((self.plan.window.n_slots * self._buckets,
-                            self.plan.reduce.channels), dtype=torch.float32,
-                           device=self.device)
+        """Zeroed carried window state — ``channels`` float32 columns,
+        ``[sum, count]`` per plan (both sides' pairs for a join, which
+        shares one carry) — on the plan's device, in the backend's
+        layout."""
+        shape = self.axis.rows_shape(self._rows) + (self.plan.reduce.channels,)
+        return torch.zeros(shape, dtype=torch.float32, device=self.device)
 
     def step(self, rows, carry: torch.Tensor,
              min_window: int | None = None):
@@ -491,13 +545,47 @@ class CompiledStreamAggregate:
         behind the copy and the host moves on) or a tensor already
         there."""
         rows = _rows_to(rows, self.device)
-        if not self.plan.window.fanout_on_device:
-            return self._fold(rows, carry)
-        return self._fold(rows, carry, min_window)
+        rows = rows.reshape(-1, rows.shape[-1])
+        args = () if not self.plan.window.fanout_on_device else (min_window,)
+        if self.axis.simulated:
+            _, stats = self._fold(rows, carry.view(-1, carry.shape[-1]),
+                                  *args)
+            return carry, stats
+        partial = torch.zeros((self._rows, carry.shape[-1]),
+                              dtype=torch.float32, device=self.device)
+        partial, stats = self._fold(rows, partial, *args)
+        carry += self.axis.psum_scatter(partial)[0]
+        return carry, self.axis.psum(stats)
+
+    # -- the carry as one flat slab ------------------------------------------
+    def _flat(self, carry: torch.Tensor) -> torch.Tensor:
+        """The whole flat ``(n_slots * carry_buckets, C)`` carry: a view,
+        or under ``"shard_map"`` every rank's share gathered."""
+        return self.axis.unshard(carry).view(-1, carry.shape[-1])
+
+    def _owned(self, carry: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
+        """The rows ``[lo, hi)`` of the flat carry this process holds, as a
+        writable view (empty where another rank holds them)."""
+        flat = carry.view(-1, carry.shape[-1])
+        base = self.axis.rank * flat.shape[0]
+        lo, hi = max(lo - base, 0), min(hi - base, flat.shape[0])
+        return flat[lo:max(hi, lo)]
+
+    def checkpoint_carry(self, carry: torch.Tensor) -> torch.Tensor:
+        """The carry as a checkpoint holds it: the backend's own layout,
+        except under ``"shard_map"``, whose checkpoint is the gathered flat
+        carry (so it restores under ``"fused"`` and the reference's
+        ``pallas`` / ``shard_map``)."""
+        return self.axis.unshard(carry)
+
+    def restore_carry(self, saved: torch.Tensor) -> torch.Tensor:
+        """This process's carry from a ``checkpoint_carry`` image (on the
+        plan's device)."""
+        return self.axis.shard(saved).clone()
 
     def _slot_rows(self, carry: torch.Tensor, slot: int) -> torch.Tensor:
         nb = self._buckets
-        return carry[slot * nb:(slot + 1) * nb]
+        return self._flat(carry)[slot * nb:(slot + 1) * nb]
 
     def read_slot(self, carry: torch.Tensor, slot: int) -> np.ndarray:
         """One finalized window's dense ``(carry_buckets, channels)``
@@ -506,7 +594,8 @@ class CompiledStreamAggregate:
 
     def clear_slot(self, carry: torch.Tensor, slot: int) -> torch.Tensor:
         """Zero a finalized window's slice so its ring slot can be reused."""
-        self._slot_rows(carry, slot).zero_()
+        nb = self._buckets
+        self._owned(carry, slot * nb, (slot + 1) * nb).zero_()
         return carry
 
     # -- cell ops (session windows: one key per window) ----------------------
@@ -517,7 +606,7 @@ class CompiledStreamAggregate:
                   bucket: int) -> np.ndarray:
         """One (slot, bucket) cell's ``[sum, count]`` aggregate — a
         finalized session's entire state."""
-        return _to_host(carry[self._cell(slot, bucket)])
+        return _to_host(self._flat(carry)[self._cell(slot, bucket)])
 
     def merge_cell(self, carry: torch.Tensor, src_slot: int, dst_slot: int,
                    bucket: int) -> torch.Tensor:
@@ -525,16 +614,18 @@ class CompiledStreamAggregate:
         how a bridging event merges two open sessions of one key without
         the carry leaving the device."""
         src, dst = self._cell(src_slot, bucket), self._cell(dst_slot, bucket)
-        merged = carry[src] + carry[dst]
-        carry[dst] = merged
-        carry[src] = 0.0
+        flat = self._flat(carry)
+        merged = flat[src] + flat[dst]
+        self._owned(carry, dst, dst + 1)[:] = merged
+        self._owned(carry, src, src + 1)[:] = 0.0
         return carry
 
     def clear_cell(self, carry: torch.Tensor, slot: int,
                    bucket: int) -> torch.Tensor:
         """Zero one (slot, bucket) cell so a finalized session's cell
         frees."""
-        carry[self._cell(slot, bucket)] = 0.0
+        cell = self._cell(slot, bucket)
+        self._owned(carry, cell, cell + 1).zero_()
         return carry
 
     # -- fixed-capacity heavy hitters ----------------------------------------
@@ -571,12 +662,14 @@ class CompiledStreamAggregate:
         bucket id → the destination's key id, ``< 0`` = unassigned),
         stamped with the re-windowed span ``[last_window, n_windows]``
         (already rebased by the caller) and valued with the finalized
-        ``kind`` aggregate (``stages.carry_handoff_rows``).  Returns flat
-        ``(dst_rows, 5)`` device-wire rows — the reference's
-        ``shard_map``/``pallas`` layout."""
-        return stages.carry_handoff_rows(
+        ``kind`` aggregate (``stages.carry_handoff_rows``).  Returns the
+        destination backend's wire: ``(W, dst_rows / W, 5)`` under
+        ``"vmap"``, the flat global ``(dst_rows, 5)`` otherwise (every
+        rank builds all of it; each folds its own shard)."""
+        rows = stages.carry_handoff_rows(
             self._slot_rows(carry, slot), relabel, last_window, n_windows,
             kind, dst_rows, channel_base=self.plan.reduce.channel_base)
+        return self.axis.layout(rows)
 
 
 # ---------------------------------------------------------------------------
@@ -589,35 +682,42 @@ class CompiledStreamGroup:
     key's full value list when a window finalizes (``finalize_slot``) —
     the contract of batch group mode.
 
-    The carry is the reference's ``vmap`` layout, the dict ``{"keys":
-    (W, n_slots, capacity) int32 (-1 = empty), "vals": (W, n_slots,
-    capacity) float32, "counts": (W, n_slots) int32}`` on the plan's
-    device, so a checkpoint of it moves between the two packages.
+    The carry is the dict ``{"keys": int32 (-1 = empty), "vals": float32,
+    "counts": int32}`` on the plan's device, in the reference's layouts:
+    ``(W, n_slots, capacity)`` buffers and ``(W, n_slots)`` counts under
+    ``"fused"`` and ``"vmap"``, so a checkpoint of it moves between the two
+    packages; under ``"shard_map"`` this rank's ``(n_slots, capacity)`` and
+    ``(n_slots,)`` share of the reference's ``(W * n_slots, capacity)``.
 
     ``step(rows, carry, min_window) -> (carry, stats)`` folds one
     device-wire micro-batch: the records fan out to their windows on the
     device, each live (record, window) pair goes to worker
     ``hash_partition(slot * num_buckets + bucket, W)``, and is appended to
-    that worker's buffer for the slot.  The reference deals the wire to its
-    workers in contiguous slices and exchanges with a send capacity of
-    every expanded record, so its exchange never drops and each buffer
-    receives its records in wire order; one stable sort of the whole wire
-    by (worker, slot) puts them in the same places, and only the buffers
-    drop, past ``capacity``.  ``stats`` is an int32 ``[late, expanded,
-    dropped]`` tensor left on the device.  ``step`` returns new buffers
-    (it does not write into the ones it is given); ``clear_slot`` empties
-    a slot in place.
+    that worker's buffer for the slot; past ``capacity`` it is dropped and
+    counted.  ``stats`` is an int32 ``[late, expanded, dropped]`` tensor
+    left on the device.  With simulated workers (``"fused"``, and
+    ``"vmap"``'s ``(W, per, 5)`` wire seen flat) one stable sort of the
+    flat wire by (worker, slot) puts every record where the reference's
+    exchange would: it deals the wire to its workers in contiguous slices
+    and sends every expanded record, so only the buffers drop.  Under
+    ``"shard_map"`` the rank builds its send buffers from its ``(per, 5)``
+    shard and the exchange is the axis's ``all_to_all``, as in the
+    reference.  ``step`` returns new buffers (it does not write into the
+    ones it is given); ``clear_slot`` empties a slot in place.
     """
 
-    def __init__(self, plan: ExecutionPlan, device: torch.device):
+    def __init__(self, plan: ExecutionPlan, device: torch.device, axis):
         self.plan = plan
         self.device = device
+        self.axis = axis
 
     def init_carry(self) -> dict:
         """Empty per-(worker, window slot) record buffers on the plan's
         device."""
         plan = self.plan
-        shape = (plan.n_workers, plan.window.n_slots, plan.reduce.capacity)
+        shape = (plan.window.n_slots, plan.reduce.capacity)
+        if self.axis.simulated:
+            shape = (plan.n_workers,) + shape
         return {"keys": torch.full(shape, stages.INVALID, dtype=torch.int32,
                                    device=self.device),
                 "vals": torch.zeros(shape, dtype=torch.float32,
@@ -625,20 +725,55 @@ class CompiledStreamGroup:
                 "counts": torch.zeros(shape[:-1], dtype=torch.int32,
                                       device=self.device)}
 
+    def _local(self, t: torch.Tensor) -> torch.Tensor:
+        """A carry leaf with its leading axis of local workers (a view)."""
+        return t if self.axis.simulated else t.unsqueeze(0)
+
+    def _fanout(self, rows: torch.Tensor, min_window: int):
+        """Decode device-wire rows, bucket their keys and fan them out to
+        their windows: ``(flat (slot, bucket) ids, values, live, late,
+        expanded)``."""
+        ks, ws = self.plan.key_space, self.plan.window
+        last, nw = rows[:, 0].to(torch.int32), rows[:, 1].to(torch.int32)
+        buckets = stages.bucketize(rows[:, 2].to(torch.int32),
+                                   ks.num_buckets, hashed=ks.is_hashed)
+        slots, keys_f, vals_f, live, late, expanded = stages.window_fanout(
+            last, nw, buckets, rows[:, 3], rows[:, 4] > 0, ws.fanout,
+            ws.n_slots, min_window)
+        return (slots.to(torch.int64) * ks.num_buckets + keys_f, vals_f,
+                live, late, expanded)
+
     def step(self, rows, carry: dict, min_window: int = -(2 ** 31)):
         """One micro-batch fold of device-wire rows ``[last_window,
         n_windows, key, value, valid]`` (window indices rebased by the
         caller; ``min_window`` is the late bound on the same base)."""
+        rows = _rows_to(rows, self.device)
+        rows = rows.reshape(-1, rows.shape[-1])
+        if self.axis.simulated:
+            return self._step_flat(rows, carry, min_window)
+        plan, axis = self.plan, self.axis
+        flat, vals, live, late, expanded = self._fanout(rows, min_window)
+        # capacity = every expanded record: the exchange cannot drop, only
+        # the per-slot window buffers bound capacity
+        sk, sv, sok, _ = stages.build_send_buffers(
+            flat, vals, plan.n_workers, flat.shape[0], valid=live)
+        rk, rv, rok = stages.exchange(sk[None], sv[None], sok[None], axis)
+        ok = rok[0].reshape(-1)
+        kb, vb, counts, dropped = stages.append_window_records(
+            carry["keys"], carry["vals"], carry["counts"], rk[0].reshape(-1),
+            torch.where(ok, rv[0].reshape(-1), 0.0), ok, plan.window.n_slots,
+            plan.reduce.capacity, plan.key_space.num_buckets)
+        stats = torch.stack([late, expanded, dropped]).to(torch.int32)
+        return {"keys": kb, "vals": vb, "counts": counts}, axis.psum(stats)
+
+    def _step_flat(self, rows: torch.Tensor, carry: dict, min_window: int):
+        """The simulated workers' fold: the whole flat wire, one stable
+        sort by (worker, slot) into the stacked buffers."""
         plan = self.plan
         ks, ws = plan.key_space, plan.window
-        rows = _rows_to(rows, self.device)
-        last, nw = rows[:, 0].to(torch.int32), rows[:, 1].to(torch.int32)
-        keys = rows[:, 2].to(torch.int32)
-        buckets = stages.bucketize(keys, ks.num_buckets, hashed=ks.is_hashed)
-        slots, keys_f, vals_f, live, late, expanded = stages.window_fanout(
-            last, nw, buckets, rows[:, 3], rows[:, 4] > 0, ws.fanout,
-            ws.n_slots, min_window)
-        flat = slots.to(torch.int64) * ks.num_buckets + keys_f
+        flat, vals_f, live, late, expanded = self._fanout(rows, min_window)
+        keys_f = flat % ks.num_buckets
+        slots = flat // ks.num_buckets
         cell = (stages.hash_partition(flat, plan.n_workers).to(torch.int64)
                 * ws.n_slots + slots)
         n_cells = plan.n_workers * ws.n_slots
@@ -658,14 +793,27 @@ class CompiledStreamGroup:
         """Gather, merge and reduce one window's buffered records across
         every worker; returns host ``(group_keys, group_values,
         group_valid)`` of length ``W * capacity`` (the window's groups
-        first, in key order)."""
+        first, in key order), the same on every rank."""
         gk, gv, gvalid = stages.gather_window_group(
-            carry["keys"], carry["vals"], slot, self.plan.reduce.reduce_fn)
+            self._local(carry["keys"]), self._local(carry["vals"]), slot,
+            self.plan.reduce.reduce_fn, axis=self.axis)
         return _to_host(gk), _to_host(gv), _to_host(gvalid)
 
     def clear_slot(self, carry: dict, slot: int) -> dict:
-        """Empty one slot of every worker's buffers (in place) so its ring
-        slot can be reused."""
-        stages.clear_window_group(carry["keys"], carry["vals"],
-                                  carry["counts"], slot)
+        """Empty one slot of every local worker's buffers (in place) so
+        its ring slot can be reused."""
+        stages.clear_window_group(self._local(carry["keys"]),
+                                  self._local(carry["vals"]),
+                                  self._local(carry["counts"]), slot)
         return carry
+
+    def checkpoint_carry(self, carry: dict) -> dict:
+        """The carry as a checkpoint holds it: the backend's own layout,
+        except under ``"shard_map"``, whose checkpoint is every rank's share
+        gathered into the reference's ``(W * n_slots, capacity)``
+        buffers."""
+        return {k: self.axis.unshard(v) for k, v in carry.items()}
+
+    def restore_carry(self, saved: dict) -> dict:
+        """This process's carry from a ``checkpoint_carry`` image."""
+        return {k: self.axis.shard(v).clone() for k, v in saved.items()}

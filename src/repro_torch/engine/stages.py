@@ -19,16 +19,20 @@ kernel of its own in either package — its stages are plain tensor ops
 (sorts, scans, scatters), on the device of the tensors they are given.
 
 The reference runs these stages once per worker under ``vmap`` or
-``shard_map`` and finishes with a collective.  The port keeps the worker
-axis explicit where the result depends on it.  The aggregating shuffle
-runs once over every worker's records (a sum of per-worker sums is one
-sum, so the combine plus ``psum_scatter`` is one combine, and the
-owner-routed distinct-key exchange is one global ``torch.unique``).  The
-grouping shuffle does depend on it — capacity drops and the order of a
-key's values follow from which worker sent what — so its stages take one
-worker's records, as the reference's do, and ``exchange`` is the
-``all_to_all`` over an explicit leading axis: a transpose of the stacked
-send buffers, ``(W_src, W_dst, cap)`` → ``(W_dst, W_src, cap)``.
+``shard_map`` and finishes with a collective.  Here the stages that end in
+one take a worker axis (``engine.compile``): ``SimulatedAxis`` holds every
+worker on one device, ``DistributedAxis`` is this rank of a
+``torch.distributed`` group, and each stage is written once over the
+axis's four collectives.  A tensor held per worker carries a leading axis
+of the process's local workers (all of them when simulated, one on a
+rank).  The aggregating shuffle combines the process's records in one
+``hash_combine`` launch and reduce-scatters the sum (``psum_scatter``: on
+the simulated axis the one combine over every worker's records already is
+the sum over senders, so the scatter only cuts out each owner's slice);
+the grouping shuffle routes records to their owners with ``all_to_all``,
+so capacity drops and the order of a key's values follow from which
+worker sent what, as in the reference; the distinct-key count and a
+windowed group stage's finalization gather over ``all_gather``.
 
 **A user's group reducer** has the reference's contract: ``reduce_fn(keys,
 values, starts) -> (group_keys, group_values, group_valid)`` over one
@@ -46,10 +50,12 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from ..kernels.fused_fold.ref import murmur32
 from ..kernels.hash_combine import ops as hash_combine
+from .compile import SimulatedAxis
 
 #: raw hashed-key ids must survive the float32 wire exactly
 RAW_KEY_BITS = 24
@@ -110,14 +116,25 @@ def resolve_combine_fn(combine_fn):
                      f"got {combine_fn!r}")
 
 
-def shuffle_aggregate(keys: torch.Tensor, values: torch.Tensor,
+def shuffle_aggregate(keys: torch.Tensor, values: torch.Tensor, axis,
                       num_buckets: int, valid: torch.Tensor | None = None,
                       combine_fn=None) -> torch.Tensor:
-    """Aggregating shuffle over every worker's records at once: the
-    combiner's dense ``(num_buckets, ...)`` sum.  Worker ``w`` of the
-    reference owns the contiguous slice ``[w * per, (w + 1) * per)`` of
-    it, which is what its ``psum_scatter`` hands out."""
-    return resolve_combine_fn(combine_fn)(keys, values, num_buckets, valid)
+    """Aggregating shuffle: the combiner's dense ``(num_buckets, ...)`` sum
+    of this process's records (every worker's on the simulated axis), then
+    the reduce-scatter over ``axis``.  Returns ``(local workers,
+    num_buckets / W, ...)``: worker ``w`` owns the contiguous slice ``[w *
+    per, (w + 1) * per)`` of the sum over every worker, which is what the
+    reference's ``psum_scatter`` hands out."""
+    local = resolve_combine_fn(combine_fn)(keys, values, num_buckets, valid)
+    return axis.psum_scatter(local)
+
+
+def bucket_owner(num_buckets: int, n_partitions: int) -> np.ndarray:
+    """Host helper: which partition owns each bucket id under the
+    aggregating shuffle's tiled scatter (contiguous ranges over the padded
+    bucket space — see ``KeySpace.padded``)."""
+    per = -(-num_buckets // n_partitions)
+    return np.minimum(np.arange(num_buckets) // per, n_partitions - 1)
 
 
 @dataclass(frozen=True)
@@ -220,43 +237,47 @@ def build_send_buffers(keys: torch.Tensor, values: torch.Tensor,
 
 
 def exchange(send_keys: torch.Tensor, send_values: torch.Tensor,
-             send_valid: torch.Tensor
+             send_valid: torch.Tensor, axis=None
              ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The shuffle proper over the explicit worker axis: every worker's
-    stacked send buffers ``(W_src, W_dst, cap, ...)`` become every
-    worker's receive buffers ``(W_dst, W_src, cap, ...)`` — row ``q`` of
-    worker ``p``'s result came from worker ``q``, as the reference's
-    tiled ``all_to_all`` delivers it."""
-    return tuple(t.transpose(0, 1).contiguous()
+    """The shuffle proper: the local workers' stacked send buffers
+    ``(local, W_dst, cap, ...)`` become their receive buffers ``(local,
+    W_src, cap, ...)`` through ``axis.all_to_all`` — row ``q`` of worker
+    ``p``'s result came from worker ``q``, as the reference's tiled
+    ``all_to_all`` delivers it.  ``axis`` defaults to every worker
+    simulated here (a transpose)."""
+    axis = axis or SimulatedAxis(send_keys.shape[0])
+    return tuple(axis.all_to_all(t)
                  for t in (send_keys, send_values, send_valid))
 
 
 def shuffle_group(keys: torch.Tensor, values: torch.Tensor,
                   n_partitions: int, capacity: int,
-                  valid: torch.Tensor | None = None):
-    """Grouping shuffle over every worker: per-worker send buffers, the
-    exchange, and the merge.  ``keys`` / ``valid`` are ``(W, n)`` and
-    ``values`` ``(W, n, ...)``, worker ``w``'s records in row ``w``;
-    ``n_partitions`` must be ``W`` (one partition a worker).  Returns each
-    worker's key-sorted, group-marked stream of its partition as ``(W, W
-    * capacity)`` keys and starts and ``(W, W * capacity, ...)`` values,
-    and per-worker ``ShuffleStats`` (int32 ``(W,)`` ``sent`` /
-    ``dropped``) — what the reference's ``vmap`` gives."""
-    n_workers = keys.shape[0]
-    if n_partitions != n_workers:
-        raise ValueError(f"the grouping exchange gives each of {n_workers} "
+                  valid: torch.Tensor | None = None, axis=None):
+    """Grouping shuffle over the worker axis: per-worker send buffers, the
+    exchange, and the merge.  ``keys`` / ``valid`` are ``(local, n)`` and
+    ``values`` ``(local, n, ...)``, local worker ``w``'s records in row
+    ``w``; ``n_partitions`` must be the axis size (one partition a
+    worker).  Returns each local worker's key-sorted, group-marked stream
+    of its partition as ``(local, W * capacity)`` keys and starts and
+    ``(local, W * capacity, ...)`` values, and per-worker ``ShuffleStats``
+    (int32 ``(local,)`` ``sent`` / ``dropped``) — what the reference's
+    ``vmap`` gives, a rank's row of it under ``shard_map``.  ``axis``
+    defaults to every worker simulated here."""
+    axis = axis or SimulatedAxis(keys.shape[0])
+    if n_partitions != axis.size:
+        raise ValueError(f"the grouping exchange gives each of {axis.size} "
                          f"workers one partition; got n_partitions="
                          f"{n_partitions}")
     sends = [build_send_buffers(keys[w], values[w], n_partitions, capacity,
                                 None if valid is None else valid[w])
-             for w in range(n_workers)]
+             for w in range(axis.local)]
     rk, rv, rok = exchange(torch.stack([s[0] for s in sends]),
                            torch.stack([s[1] for s in sends]),
-                           torch.stack([s[2] for s in sends]))
+                           torch.stack([s[2] for s in sends]), axis)
     vshape = tuple(rv.shape[3:])
     merged = [sort_and_group(rk[w].reshape(-1),
                              rv[w].reshape((-1,) + vshape),
-                             rok[w].reshape(-1)) for w in range(n_workers)]
+                             rok[w].reshape(-1)) for w in range(axis.local)]
     stats = ShuffleStats(torch.stack([s[3].sent for s in sends]),
                          torch.stack([s[3].dropped for s in sends]))
     return (torch.stack([m[0] for m in merged]),
@@ -265,19 +286,26 @@ def shuffle_group(keys: torch.Tensor, values: torch.Tensor,
 
 
 def distinct_keys_per_bucket(raw_keys: torch.Tensor,
-                             valid: torch.Tensor | None,
+                             valid: torch.Tensor | None, axis,
                              num_buckets: int) -> torch.Tensor:
     """Exact global per-bucket distinct-raw-key counts over the valid
-    records of every worker, as int32 ``(num_buckets,)``; the reference's
-    ``distinct_keys_per_bucket`` computes the same counts with a
-    dedupe-and-route exchange that cannot drop.  ``INT32_MAX`` is the
-    reference's invalid sentinel, so a raw key of that value is not
-    counted there either."""
+    records of every worker, as int32 ``(num_buckets,)``, the same on
+    every worker.
+
+    ``raw_keys`` / ``valid`` are ``(local, n)``.  Every worker's keys, the
+    invalid ones masked to ``INT32_MAX``, are gathered over ``axis`` (one
+    ``all_gather``: a reshape on the simulated axis), then one global
+    ``torch.unique`` and one ``bincount`` of the distinct keys' buckets.
+    The reference counts the same keys with a dedupe-and-route exchange
+    that cannot drop.  ``INT32_MAX`` is the reference's invalid sentinel,
+    so a raw key of that value is not counted there either."""
     raw = raw_keys.to(torch.int32)
     keep = raw != INT32_MAX
     if valid is not None:
         keep = keep & valid.to(torch.bool)
-    uniq = torch.unique(raw[keep])
+    every = axis.all_gather(torch.where(keep, raw, INT32_MAX))
+    uniq = torch.unique(every)
+    uniq = uniq[uniq != INT32_MAX]
     buckets = bucketize(uniq, num_buckets, hashed=True).to(torch.int64)
     return torch.bincount(buckets, minlength=num_buckets).to(torch.int32)
 
@@ -514,15 +542,18 @@ def append_window_records(keys_buf: torch.Tensor, vals_buf: torch.Tensor,
 
 
 def gather_window_group(keys_buf: torch.Tensor, vals_buf: torch.Tensor,
-                        slot: int, reduce_fn):
+                        slot: int, reduce_fn, axis=None):
     """Finalize one window of the grouping carry: slot ``slot`` of every
-    worker's ``(W, n_slots, capacity)`` buffers concatenated in worker
-    order (the reference's tiled ``all_gather``), key-sorted, and the
-    grouping reducer run over each key's full value list.  Returns dense
-    ``(group_keys, group_values, group_valid)`` of length ``W *
-    capacity`` on the buffers' device."""
-    k = keys_buf[:, slot].reshape(-1)
-    v = vals_buf[:, slot].reshape((-1,) + tuple(vals_buf.shape[3:]))
+    worker's buffers gathered in worker order (``axis.all_gather``, the
+    reference's tiled ``all_gather``: the local workers' ``(local,
+    n_slots, capacity)`` buffers in, every worker's records out),
+    key-sorted, and the grouping reducer run over each key's full value
+    list.  Returns dense ``(group_keys, group_values, group_valid)`` of
+    length ``W * capacity`` on the buffers' device, the same on every
+    worker.  ``axis`` defaults to every worker simulated here."""
+    axis = axis or SimulatedAxis(keys_buf.shape[0])
+    k = axis.all_gather(keys_buf[:, slot])
+    v = axis.all_gather(vals_buf[:, slot])
     sk, sv, starts = sort_and_group(k, v, valid=k >= 0)
     return apply_reduce_fn(reduce_fn, sk, sv, starts)
 

@@ -53,10 +53,14 @@ drives once over the whole input (batch mode), with bit-identical
 per-window output bytes on every branch; an array pipeline's program runs
 once over its shards.
 
-The reference also compiles to simulated-worker and multi-process
-backends.  They are not ported yet: asking for one raises
-``NotImplementedError`` at build naming the ``ROADMAP.md`` item that
-queues it — nothing falls back.
+``backend`` picks where the workers live (``engine.compile.BACKENDS``):
+the port's ``"fused"`` default, ``"vmap"`` (simulated workers in the
+reference's per-worker layouts) or ``"shard_map"`` (one
+``torch.distributed`` rank a worker, ``group=`` or the default group).
+Under the last two an aggregate stage's ``num_buckets`` must divide by
+``n_workers``, as the reference requires; a join under ``"shard_map"``
+is not ported yet and raises ``NotImplementedError`` naming the
+``ROADMAP.md`` item — nothing falls back.
 """
 
 from __future__ import annotations
@@ -67,7 +71,7 @@ from dataclasses import dataclass
 from typing import Any, Callable
 
 from ..engine.plan import (BACKEND, ExecutionPlan, KeySpace, ReduceSpec,
-                           WindowSpec)
+                           WindowSpec, not_ported)
 from ..engine.stages import SEGMENT_REDUCE_KINDS
 from ..streaming.sessions import SessionTracker
 from ..streaming.state import WindowTracker
@@ -612,7 +616,7 @@ def _lower_side(chain: _Chain, name: str, *, num_buckets: int,
                 n_workers: int, n_slots: int, key_space, fanout: str,
                 backend: str, device, channels: int, channel_base: int,
                 carry_buckets: int = 0, top_k: int = 0,
-                rank_by: str = "sum") -> SidePlan:
+                rank_by: str = "sum", group=None) -> SidePlan:
     """One record chain → its streaming plan on ``device``, folding into
     channels ``[channel_base, channel_base + 2)`` of a ``channels``-wide
     carry ``carry_buckets`` wide (0: the side's own key space)."""
@@ -636,7 +640,7 @@ def _lower_side(chain: _Chain, name: str, *, num_buckets: int,
                             channel_base=channel_base, carry_buckets=carry)
     plan = ExecutionPlan(key_space=ks, reduce=reduce, n_workers=n_workers,
                          window=window)
-    compiled = plan.compile(backend=backend, device=device)
+    compiled = plan.compile(backend=backend, device=device, group=group)
     return SidePlan(name=name, source=chain.source,
                     transform=chain.transform, key_fn=chain.key_fn,
                     value_fn=chain.value_fn, compiled=compiled,
@@ -645,7 +649,7 @@ def _lower_side(chain: _Chain, name: str, *, num_buckets: int,
 
 def _lower_array(chain: _Chain, *, num_buckets: int, n_workers: int,
                  n_slots: int, key_space, lateness: float, backend: str,
-                 finalize: bool, combine_fn, device):
+                 finalize: bool, combine_fn, device, group=None):
     """An array chain → its batch plan, compiled with the UDF, and the
     stage (no window) that carries it."""
     if chain.options:
@@ -670,7 +674,7 @@ def _lower_array(chain: _Chain, *, num_buckets: int, n_workers: int,
         emit = EmitSpec("aggregate", aggregation=chain.reduce_spec)
     plan = ExecutionPlan(key_space=ks, reduce=reduce, n_workers=n_workers)
     compiled = plan.compile(chain.transform, backend=backend, device=device,
-                            finalize=finalize)
+                            finalize=finalize, group=group)
     side = SidePlan(name="main", source=chain.source,
                     transform=chain.transform, key_fn=chain.key_fn,
                     value_fn=chain.value_fn, compiled=compiled,
@@ -702,12 +706,14 @@ def _stage_emit(chain: _Chain, num_buckets: int) -> tuple[EmitSpec, int, str]:
 
 
 def _check_record_stage(chain: _Chain, *, name: str, n_slots: int,
-                        lateness: float, fanout: str) -> None:
+                        lateness: float, fanout: str, num_buckets: int,
+                        n_workers: int, backend: str) -> None:
     """The per-stage validation shared by every record stage of the DAG —
     run with the stage's *resolved* (possibly stage-local) options.  The
-    reference also requires ``num_buckets`` to divide by ``n_workers``;
-    the flat fold has no worker axis, so the port does not (ROADMAP
-    Queue A #11)."""
+    worker backends split an aggregate carry into ``n_workers`` owner
+    slices, so there ``num_buckets`` must divide by ``n_workers`` (the
+    reference's rule); the fused fold has no worker axis and does not
+    need it."""
     where = f"{name}: " if name else ""
     if chain.windowing is None:
         raise PipelineError(where + "record pipelines need a window node "
@@ -724,6 +730,11 @@ def _check_record_stage(chain: _Chain, *, name: str, n_slots: int,
                                 "(a session holds one key)")
     if chain.reduce_mode == "group" and fanout != "device":
         raise PipelineError(where + "group mode runs with fanout='device'")
+    if backend != BACKEND and chain.reduce_mode == "aggregate" \
+            and num_buckets % n_workers != 0:
+        raise PipelineError(where + "num_buckets must divide by n_workers "
+                            "so window slices stay aligned to the "
+                            "scattered carry")
 
 
 def _stage_options(chain: _Chain, *, name: str, num_buckets: int,
@@ -777,7 +788,8 @@ def build_pipeline(p: Pipeline, *, num_buckets=128, n_workers: int = 8,
                    job_id: str | None = None,
                    output_prefix: str | None = None,
                    device="cuda", finalize: bool = True,
-                   combine_fn=None, handoff: str = "device") -> BuiltPipeline:
+                   combine_fn=None, handoff: str = "device",
+                   group=None) -> BuiltPipeline:
     """Validate ``p`` and lower it to a runnable ``BuiltPipeline`` whose
     carries live on ``device`` — ``"cuda"`` by default, which must exist
     (pass ``device="cpu"`` to run the plain PyTorch versions on the CPU).
@@ -789,11 +801,13 @@ def build_pipeline(p: Pipeline, *, num_buckets=128, n_workers: int = 8,
     the larger side.  ``handoff`` picks the multi-stage boundary
     transport: ``"device"`` re-keys/re-windows finalized aggregates on the
     device where the boundary allows it, ``"host"`` always materializes
-    the records.  For a windowed pipeline ``n_workers`` only caps a
-    private pool's scale: the flat fold has no worker axis (ROADMAP Queue
-    A #11).  An array pipeline takes ``n_workers`` shards; ``finalize``
-    and ``combine_fn`` (``None``/``"pallas"``: the hash_combine kernel, or
-    a callable) shape its batch plan."""
+    the records.  ``backend`` (``"fused"``, ``"vmap"``, ``"shard_map"``;
+    ``group`` is the last one's process group) picks where the
+    ``n_workers`` workers live: under ``"fused"`` a windowed aggregate's
+    fold has no worker axis and ``n_workers`` only caps a private pool's
+    scale and sizes group buffers.  An array pipeline takes ``n_workers``
+    shards; ``finalize`` and ``combine_fn`` (``None``/``"pallas"``: the
+    hash_combine kernel, or a callable) shape its batch plan."""
     side_buckets: tuple[int, int] | None = None
     if isinstance(num_buckets, (tuple, list)):
         if len(num_buckets) != 2:
@@ -842,7 +856,7 @@ def build_pipeline(p: Pipeline, *, num_buckets=128, n_workers: int = 8,
             chain, num_buckets=num_buckets, n_workers=n_workers,
             n_slots=n_slots, key_space=key_space, lateness=allowed_lateness,
             backend=backend, finalize=finalize, combine_fn=combine_fn,
-            device=device)
+            device=device, group=group)
         built = BuiltPipeline(stages=(stage,), num_buckets=num_buckets,
                               device=compiled.device, batch_plan=compiled,
                               **common)
@@ -868,13 +882,15 @@ def build_pipeline(p: Pipeline, *, num_buckets=128, n_workers: int = 8,
                                 "KeySpace instance (it fixes one bucket "
                                 "width for the whole graph)")
         _check_record_stage(ch, name=name, n_slots=ns, lateness=lateness,
-                            fanout=fanout)
+                            fanout=fanout, num_buckets=nb,
+                            n_workers=n_workers, backend=backend)
         emit, top_k, rank_by = _stage_emit(ch, nb)
         side = _lower_side(ch, name or "main", num_buckets=nb,
                            n_workers=n_workers, n_slots=ns,
                            key_space=key_space, fanout=fanout,
                            backend=backend, device=device, channels=2,
-                           channel_base=0, top_k=top_k, rank_by=rank_by)
+                           channel_base=0, top_k=top_k, rank_by=rank_by,
+                           group=group)
         stages.append(StagePlan(idx, (side,), ch.windowing, ch.reduce_mode,
                                 emit, nb, ns, lateness, ch.capacity,
                                 output_prefix=prefix))
@@ -1009,6 +1025,14 @@ def build_pipeline(p: Pipeline, *, num_buckets=128, n_workers: int = 8,
             raise PipelineError(
                 "hashed joins need symmetric num_buckets: both sides must "
                 "hash keys into the same bucket space to match")
+        if backend == "shard_map":
+            raise not_ported("a windowed join under backend='shard_map'",
+                             "Queue A #11")
+        if backend != BACKEND and num_buckets % n_workers != 0:
+            raise PipelineError("num_buckets must divide by n_workers so "
+                                "window slices stay aligned to the "
+                                "scattered carry (asymmetric joins: the "
+                                "larger side)")
         # the join stage itself still sees raw external events on any
         # single-stage side, so it keeps the out-of-order slack; a side fed
         # through the carry arrives in watermark order
@@ -1027,7 +1051,8 @@ def build_pipeline(p: Pipeline, *, num_buckets=128, n_workers: int = 8,
         _check_channels_disjoint(layout, channels=4)
         shared = dict(n_workers=n_workers, n_slots=n_slots,
                       key_space=key_space, fanout=fanout, backend=backend,
-                      device=device, channels=4, carry_buckets=num_buckets)
+                      device=device, channels=4, carry_buckets=num_buckets,
+                      group=group)
         sides = (_lower_side(lchain, "left", num_buckets=lb,
                              channel_base=layout[0][0], **shared),
                  _lower_side(rchain, "right", num_buckets=rb,

@@ -13,7 +13,10 @@ per-window output bytes equal the streaming run's on every branch.
 ``None`` falls back to the graph's bound source: a log prefix streams,
 bound records run as one batch.  An array pipeline has one mode: its
 batch plan runs once over the worker shards (``data``, or the bound
-``shards=``) and returns ``(result, stats)``.
+``shards=``) and returns ``(result, stats)``; under ``"shard_map"`` every
+rank is given the same ``data`` and runs on its contiguous share of
+axis 0 (``rank_shard``), as the reference's ``P(axis)`` placement cuts
+it.
 
 ``JoinSource`` merges two event logs into one side-tagged record stream
 (``(ts, key, value, side)``), in event-time order with a deterministic
@@ -167,6 +170,13 @@ def _shard_source(built: BuiltPipeline, store, source, sources,
     return built, sharded
 
 
+def rank_shard(built: BuiltPipeline, data):
+    """This rank's contiguous share of axis 0 of an array pipeline's
+    ``data`` under ``"shard_map"`` (``len / n_workers`` rows, rank ``r``
+    taking the ``r``-th); the data itself under the other backends."""
+    return built.batch_plan.axis.shard(data)
+
+
 def run(built: BuiltPipeline, source_or_data=None, *,
         options: RunOptions | None = None, store=None, meta=None,
         sources=None, bus=None, autoscaler=None, pool=None,
@@ -193,7 +203,7 @@ def run(built: BuiltPipeline, source_or_data=None, *,
                              "array pipelines shard via their input shards")
         shards = (source_or_data if source_or_data is not None
                   else built.sides[0].source.shards)
-        return built.batch_plan.run(shards)
+        return built.batch_plan.run(rank_shard(built, shards))
 
     # one positional accepts a join's (left, right) pair too
     source = None

@@ -74,6 +74,7 @@ from ..core.events import (TOPIC_JOB_LIFECYCLE, EventBus,
                            job_lifecycle_event)
 from ..core.metadata import MetadataStore
 from ..core.storage import ObjectStore, StorageError
+from ..engine.plan import not_ported
 from ..kernels._build import KernelError
 from ..streaming.coordinator import (Prefetcher, RunOptions,
                                      StreamingCoordinator, StreamReport,
@@ -238,6 +239,9 @@ class JobServer:
         """
         if tenant not in self.tenants:
             raise KeyError(f"unknown tenant {tenant!r}; add_tenant first")
+        if program.backend == "shard_map":
+            raise not_ported("the job service under backend='shard_map'",
+                             "Queue A #11")
         bad = errors(program.check())
         if bad:
             raise PlanRejected(bad)

@@ -41,6 +41,18 @@ records in label order.  Its third fold counter, the records the
 buffers dropped past their capacity, adds up in
 ``StreamReport.capacity_dropped``.
 
+The backend of the program's plans sets the wire's layout
+(``engine.compile``): the flat ``(rows, 4|5)`` wire under ``"fused"``;
+under ``"vmap"`` the same rows padded to a multiple of ``n_workers`` and
+seen as ``(W, per, 4|5)``, worker ``w`` taking rows ``[w * per, (w + 1) *
+per)`` as the reference pads and deals them; under ``"shard_map"`` each
+rank runs this coordinator over the same source and folds its own
+``per`` rows of that padded wire.  Finalized windows are gathered from
+every rank, so every rank emits the same records, and only rank 0
+writes them (and the carry checkpoints) to the store, so exactly-once
+holds; each rank records the checkpoint's metadata, which is the same on
+every rank.
+
 Checkpoints keep the reference's format byte for byte: an npz of
 ``leaf{i}`` arrays for the tuple of stage carries under
 ``jobs/<job_id>/stream/carry`` (in pytree leaf order: an aggregate
@@ -49,8 +61,11 @@ stage's slab is one leaf, a group stage's dict three — ``counts``,
 ``carry_shapes``, per-stage tracker and key tables, per-edge
 ``edge_fed``).  A job checkpointed by the reference's coordinator resumes
 here, and the reverse, where the carries have one layout in both: the
-aggregate slab of its ``backend="pallas"`` and the group buffers of its
-``vmap``.
+aggregate slab of its ``backend="pallas"`` and ``"shard_map"`` (which
+the port's ``"fused"`` and ``"shard_map"`` write: the latter gathers the
+ranks' shares first, and each rank takes its own back on restore), and
+the ``vmap`` layouts (the port's ``"vmap"``; its group buffers also under
+``"fused"``).
 
 The drive loop is the reference's three-lane scheduler (``RunOptions``).
 *Prepare*: a background thread reads and host-prepares micro-batch N+1
@@ -325,11 +340,11 @@ def _carry_leaves(carry) -> list:
 
 
 def _restore_carry(like, arrays: list, device):
-    """Checkpointed leaves as a carry of ``like``'s kind on ``device``:
-    an aggregate slab through ``carries_from_reference``, a group carry
-    leaf by leaf in its own dtypes."""
+    """Checkpointed leaves as a carry of ``like``'s kind and shape on
+    ``device``: an aggregate carry through ``carries_from_reference``, a
+    group carry leaf by leaf in its own dtypes."""
     if not isinstance(like, dict):
-        return carries_from_reference(arrays, device)[0]
+        return carries_from_reference(arrays, device)[0].reshape(like.shape)
     out = {}
     for name, arr in zip(sorted(like), arrays):
         want = like[name].dtype
@@ -509,6 +524,10 @@ class StreamingCoordinator:
             self._in.setdefault(e.spec.dst, []).append(e)
         self._roots = sorted({si for si, _side in program.inputs})
         self._ext_wm: dict[int, float] = {}  # per-root external watermark
+        # the worker axis of the program's plans: its size rounds the
+        # wire, its rank picks this process's shard and the store writer
+        self._axis = program.stages[0].sides[0].compiled.axis
+        self._writer = self._axis.rank == 0
         self.stages = [_StageState(sp, self._wire_rows(si))
                        for si, sp in enumerate(program.stages)]
         self._build_tables()
@@ -528,9 +547,10 @@ class StreamingCoordinator:
         output where the carry feeds it (a stage fed both ways takes the
         max; grown on demand if flat-maps expand it), times the window
         fan-out on the host fan-out wire.  A group stage's window holds
-        up to ``n_workers * capacity`` groups.  The flat wire is not split
-        into ``n_workers`` per-worker slices, so unlike the reference's
-        the bound is not rounded up to a multiple of them."""
+        up to ``n_workers * capacity`` groups.  Under ``"vmap"`` and
+        ``"shard_map"`` the wire is dealt to ``n_workers`` workers, so the
+        bound rounds up to a multiple of them (the reference's
+        ``per_worker``); the fused wire is not rounded."""
         prog = self.prog
         sp = prog.stages[si]
         bounds = [prog.batch_records] if any(
@@ -546,7 +566,7 @@ class StreamingCoordinator:
         bound = max(bounds)
         if not (sp.is_session or prog.fanout == "device"):
             bound *= sp.assigner().max_windows_per_event()
-        return bound
+        return self._axis.round_rows(bound)
 
     def _build_tables(self) -> None:
         prog = self.prog
@@ -619,7 +639,8 @@ class StreamingCoordinator:
             needed = len(recs)
         else:
             needed = len(recs) * stage.assigner.max_windows_per_event()
-        stage.wire_rows = max(stage.wire_rows, needed)
+        stage.wire_rows = max(stage.wire_rows,
+                              self._axis.round_rows(needed))
 
     @lane("driver")
     def _stage_recs(self, si: int, raw, report: StreamReport,
@@ -644,8 +665,11 @@ class StreamingCoordinator:
         ingestion and carry handoff alike — passes here, so
         ``report.folds`` counts the run's fold steps."""
         stage = self.stages[si]
+        # the backend's wire: (W, per, width) under "vmap", this rank's
+        # per rows under "shard_map", the flat rows under "fused"
+        wire = self._axis.shard(self._axis.layout(rows))
         stage.carry, stats = self.pool.submit(
-            stage.plan.sides[side].compiled.step, rows, stage.carry,
+            stage.plan.sides[side].compiled.step, wire, stage.carry,
             min_window)
         report.folds += 1
         return stats
@@ -710,6 +734,8 @@ class StreamingCoordinator:
         overwrite.  With sink batching on, the write stages on the drain
         lane; ``_flush_sinks`` writes the sweep's windows in one
         ``put_many``."""
+        if not self._writer:
+            return              # rank 0 writes every rank's (equal) windows
         blob = _encode_records(records)
         if t_close is None:
             t_close = time.perf_counter()
@@ -1060,10 +1086,13 @@ class StreamingCoordinator:
                 f"{len(self._pending_stats)} deferred stats reads); "
                 "checkpoints must follow the batch-boundary drain")
         leaves = [leaf.to("cpu", copy=True).numpy() for st in self.stages
-                  for leaf in _carry_leaves(st.carry)]
-        buf = io.BytesIO()
-        np.savez(buf, **{f"leaf{i}": leaf for i, leaf in enumerate(leaves)})
-        self.store.put(_carry_key(self.prog.job_id), buf.getvalue())
+                  for leaf in _carry_leaves(
+                      st.compiled.checkpoint_carry(st.carry))]
+        if self._writer:
+            buf = io.BytesIO()
+            np.savez(buf, **{f"leaf{i}": leaf
+                             for i, leaf in enumerate(leaves)})
+            self.store.put(_carry_key(self.prog.job_id), buf.getvalue())
         self.meta.set(_state_key(self.prog.job_id), {
             "offset": self._records_consumed,
             "carry_shapes": [list(leaf.shape) for leaf in leaves],
@@ -1073,6 +1102,7 @@ class StreamingCoordinator:
                 "tables": [t.state_dict() for t in self._unique_tables(st)],
             } for st in self.stages],
         })
+        self._axis.barrier()    # every rank past the write before any reads
 
     def restore_state(self) -> int:
         """Load a prior run's checkpoint (this package's or the
@@ -1099,8 +1129,10 @@ class StreamingCoordinator:
                 f"{len(state['stages'])} stages but this program has "
                 f"{len(self.stages)}; the pipeline changed under the job")
         shapes = [tuple(s) for s in state["carry_shapes"]]
-        mine = [tuple(leaf.shape) for st in self.stages
-                for leaf in _carry_leaves(st.carry)]
+        images = [st.compiled.checkpoint_carry(st.carry)
+                  for st in self.stages]
+        mine = [tuple(leaf.shape) for image in images
+                for leaf in _carry_leaves(image)]
         if shapes != mine:
             raise ValueError(
                 f"checkpointed carry shapes {shapes} do not match this "
@@ -1110,10 +1142,10 @@ class StreamingCoordinator:
         with np.load(io.BytesIO(blob)) as loaded:
             arrays = [loaded[f"leaf{i}"] for i in range(len(mine))]
         at = 0
-        for st in self.stages:
-            n = len(_carry_leaves(st.carry))
-            st.carry = _restore_carry(st.carry, arrays[at:at + n],
-                                      st.compiled.device)
+        for st, image in zip(self.stages, images):
+            n = len(_carry_leaves(image))
+            st.carry = st.compiled.restore_carry(_restore_carry(
+                image, arrays[at:at + n], st.compiled.device))
             at += n
         for st, sdict in zip(self.stages, state["stages"]):
             st.tracker.load_state_dict(sdict["tracker"])

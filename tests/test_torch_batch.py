@@ -342,9 +342,13 @@ def test_array_grammar_errors_match_reference():
     from repro_torch.pipeline import RunOptions
     with pytest.raises(ValueError, match="shard="):
         built.run(shards, options=RunOptions(shard=(0, 2)))
-    with pytest.raises(NotImplementedError, match="Queue A #11"):
+    vmapped = (Pipeline.from_source(shards=shards).map(_torch_pairs)
+               .reduce("sum").build(num_buckets=32, n_workers=W,
+                                    backend="vmap", device="cpu"))
+    assert vmapped.backend == "vmap"
+    with pytest.raises(ValueError, match="process group"):
         (Pipeline.from_source(shards=shards).map(_torch_pairs).reduce("sum")
-         .build(num_buckets=32, backend="vmap", device="cpu"))
+         .build(num_buckets=32, backend="shard_map", device="cpu"))
     with pytest.raises(PipelineError, match="combine_fn"):
         (Pipeline.from_source(records=[(0.0, "a", 1.0)]).key_by()
          .window(10.0).reduce("sum").build(device="cpu", combine_fn="pallas"))

@@ -138,22 +138,28 @@ def test_top_k_ties_break_toward_lower_bucket():
 
 
 def test_unported_shapes_raise_not_implemented():
-    """What is still unported is the simulated-worker and multi-process
-    backends (ROADMAP Queue A #11), for group plans as for the others;
-    group mode itself compiles (``test_torch_group.py``)."""
+    """The simulated-worker backend compiles every plan shape, group plans
+    as the others, in the reference's per-worker layouts; the
+    multi-process backend needs an initialised process group of
+    ``n_workers`` ranks and says so; an unknown backend names the three
+    it has."""
     ks, ws = KeySpace.dense(16), WindowSpec(100.0, 25.0, 8)
     group = ReduceSpec(mode="group", capacity=8)
-    with pytest.raises(NotImplementedError, match="Queue A #11"):
-        ExecutionPlan(ks, group, W, ws).compile(backend="vmap",
-                                                device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue A #11"):
+    carry = ExecutionPlan(ks, group, W, ws).compile(
+        backend="vmap", device="cpu").init_carry()
+    assert carry["keys"].shape == (W, 8, 8)
+    assert ExecutionPlan(ks, ReduceSpec(), W, ws).compile(
+        backend="vmap", device="cpu").init_carry().shape == (W, 8 * 16 // W, 2)
+    with pytest.raises(ValueError, match="process group"):
         ExecutionPlan(ks, group, W).compile(lambda s: s,
                                             backend="shard_map",
                                             device="cpu")
-    for backend in ("vmap", "shard_map"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ExecutionPlan(ks, ReduceSpec(), W, ws).compile(backend=backend,
-                                                           device="cpu")
+    with pytest.raises(ValueError, match="init_process_group"):
+        ExecutionPlan(ks, ReduceSpec(), W, ws).compile(backend="shard_map",
+                                                       device="cpu")
+    with pytest.raises(ValueError, match="fused.*vmap.*shard_map"):
+        ExecutionPlan(ks, ReduceSpec(), W, ws).compile(backend="pallas",
+                                                       device="cpu")
     with pytest.raises(ValueError, match="map_fn"):
         ExecutionPlan(ks, ReduceSpec(), W, ws).compile(lambda s: s,
                                                        device="cpu")

@@ -228,7 +228,7 @@ def test_unported_pipeline_shapes_raise():
     """Every pipeline shape lowers — joins, tee and chains past a reduce
     to stage DAGs (``test_torch_dag.py``, ``test_torch_join.py``), group
     mode to its plans (``test_torch_group.py``); what is left unported is
-    the simulated-worker and multi-process backends, and a reduce the
+    a windowed join under the multi-process backend, and a reduce the
     reference refuses raises its ``PipelineError``."""
     src = Pipeline.from_source(records=_events(n=10))
     chain = src.key_by().window(10.0).reduce("sum")
@@ -242,10 +242,12 @@ def test_unported_pipeline_shapes_raise():
     with pytest.raises(PipelineError, match="group reduce kind"):
         src.key_by().window(10.0).reduce("median", mode="group",
                                          capacity=8).build(device="cpu")
+    assert Pipeline.from_source(shards=[1]).map(lambda s: s).reduce(
+        "max", mode="group", capacity=8).build(
+            device="cpu", backend="vmap").batch_plan.axis.size == 8
     with pytest.raises(NotImplementedError, match="Queue A #11"):
-        Pipeline.from_source(shards=[1]).map(lambda s: s).reduce(
-            "max", mode="group", capacity=8).build(device="cpu",
-                                                   backend="vmap")
+        chain.join(chain).build(device="cpu", backend="shard_map",
+                                n_workers=2)
     with pytest.raises(PipelineError, match="n_slots"):
         src.key_by().window(Windowing.sliding(20.0, 5.0)).reduce(
             "sum").build(device="cpu", n_slots=3)
