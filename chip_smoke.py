@@ -7,6 +7,8 @@
                                      # only phase 10's plain witness (the
                                      # model's own prefill-vs-decode logit
                                      # gap) at these seeds; no kernels
+    python3 chip_smoke.py --logit-floor 0 1 2 3 4 --arch mixtral-8x7b
+                                     # the same for phase 22's or 23's model
 
 Drives ``repro_torch`` (never JAX, never the ``repro`` package) on the
 card, phase by phase; any mismatch raises and the script exits non-zero:
@@ -335,6 +337,51 @@ card, phase by phase; any mismatch raises and the script exits non-zero:
    ``all_reduce``) timed against the fused one at the main shape.  Phase
    21 adds no kernel: its launches are of the two already listed.
 
+22. qwen2-moe-a2.7b at full size (``configs.get("qwen2-moe-a2.7b")``: 24
+   layers, d_model 2048, 16 heads of 128 (GQA group 1), 60 routed experts
+   top-4 of d_ff 1408 and a shared expert of 5632 behind a sigmoid gate,
+   14,315,634,688 parameters in bfloat16, random weights from the seed)
+   after the earlier models are freed: one 8,192-token prompt through
+   ``prefill_forward`` at the published capacity_factor 1.25 (24
+   ``fwd_wgmma`` launches, counts set to 0 just before), then 16 greedy
+   ``decode_step``s (24 x 16 ``decode_cluster`` launches); the pairs each
+   layer's dispatch dropped; decode ms a step against the time to read
+   the routed experts' weights once (the reference's formulation runs
+   every expert over its capacity rows).  Layer 0's real q, k, v and
+   decode inputs are captured and each kernel held against its plain
+   version (faults reported, not required to fail).  Layer 0's real MoE
+   input h: the dispatch on the card (``buf_tok``, ``buf_valid``,
+   ``buf_w``, ``pair_slot``, ``xb``, drops per expert) must equal the
+   CPU's bit for bit given the same routing; two bfloat16 calls must agree
+   bit for bit (the combine gathers; no atomics); the bfloat16 layer is
+   held against the same layer in float32 on the same h, with identical
+   routing, within ``MOE_LAYER_REL_L2``.  Then the witness at
+   capacity_factor E / k, where no pair drops (asserted): the last
+   prefill logits against decoding the last token after a prefill one
+   token shorter, with the kernels and with the plain versions, and
+   kernel against plain on each path, within ``MOE_LOGIT_TOL`` (read with
+   ``--logit-floor ... --arch``); how many (token, slot) routing choices
+   differ between the kernel and the plain prefill, layer by layer; a
+   profile of one decode step must hold exactly one ``decode_cluster`` a
+   layer.  A torch.profiler split of one decode step and one prefill
+   (router, dispatch, expert GEMMs, combine, shared expert, attention
+   kernels, ``unembed``, the rest; each MoE part in its own
+   ``record_function`` range, its device records matched by correlation
+   id), prefill tokens/s and peak memory.  Then ``BatchedServer`` as in
+   phase 11 (4 slots, 8 requests of 32 + 32 tokens): every request
+   drains, decode launches = 24 x the decode steps.
+23. mixtral-8x7b at full width, its depth cut to 8 of 32 layers (46.7e9
+   bfloat16 parameters, 87.0 GiB, do not fit the card's 80 GB; 8 layers
+   hold 11,872,305,152, 22.1 GiB): d_model 4096, 32 q / 8 kv heads of 128
+   (GQA group 4), window 4096 on every layer, 8 experts top-2 of d_ff
+   14336.  Phase 22's checks, without the serving: 8 ``fwd_wgmma``
+   launches over the 8,192-token prompt (the windowed forward), 8 x 16
+   ``decode_cluster`` launches, drops per layer, the dispatch and layer
+   checks, the witness and kernel-vs-plain logits, tokens/s.
+   Phases 22-23 add no kernel: the reference computes MoE outside any
+   Pallas kernel (``jnp.einsum``), so the expert products are
+   ``torch.bmm``; their launch counts are printed on earlier lines.
+
 Before the last line it prints one JSON object ``{"kernels": [...]}``
 (per kernel: launches on its main path, error, kernel / plain / bound /
 library times at its main path's shape; ``fused_fold``'s entry also has
@@ -419,7 +466,8 @@ FD_CASES = [  # b, hq, hkv, s_max, d, window, softcap, dtype, cache shift
     (8, 16, 8, 4096, 256, None, 50.0, "bfloat16", 2),    # caches at byte 2
     (3, 21, 3, 500, 33, 100, 30.0, "float32", 4),        # rows off 16 bytes
 ]
-GEMMA = {"arch": "gemma2-9b", "prompt": 8192, "decode_steps": 16}
+GEMMA = {"arch": "gemma2-9b", "prompt": 8192, "decode_steps": 16,
+         "phase": 10}
 SERVE = {"slots": 4, "max_len": 128, "requests": 8, "prompt": 32,
          "max_new": 32}
 # two logit vectors at full width: atol + rtol element by element, and a
@@ -468,6 +516,48 @@ MAMBA = {"arch": "falcon-mamba-7b", "prompt": 8192, "decode_steps": 16}
 MAMBA_LOGIT_TOL = {"atol": 0.1, "rtol": 0.05, "max_abs": 0.2,
                    "rel_l2": 0.035}
 MAMBA_STATE_TOL = {"ssm": 0.02, "conv": 0.021}  # relative L2, worst layer
+# the mixture-of-experts models: qwen2-moe-a2.7b whole, mixtral-8x7b at full
+# width with its depth cut to 8 of 32 layers (46.7e9 bf16 parameters, 87.0
+# GiB, do not fit 80 GB; 8 layers hold 11.9e9, 22.1 GiB)
+QWEN_MOE = {"arch": "qwen2-moe-a2.7b", "prompt": 8192, "decode_steps": 16,
+            "layers": None, "phase": 22}
+MIXTRAL = {"arch": "mixtral-8x7b", "prompt": 8192, "decode_steps": 16,
+           "layers": 8, "phase": 23}
+# whole-model logits of the MoE models (prefill vs decode at a capacity
+# factor where nothing drops, kernel vs plain on each path), every path
+# routed by the plain prefill's expert choices (``_MoeProbe.replay``):
+# routing is discontinuous, and with free routing a rounding difference
+# near a tie moves a token to another expert outright (a quarter of the
+# choices by layer 10 of qwen2-moe-a2.7b with random weights), so the
+# gap would measure routing chaos rather than the kernels.  As
+# ``LOGIT_TOL``: atol twice the largest element excess max(|diff| - rtol
+# |want|) of the plain path's own replayed prefill-vs-decode gap over
+# seeds 0-4, max_abs and rel_l2 twice its largest max |diff| and relative
+# L2 (``--logit-floor 0 1 2 3 4 --arch ...``, on an H100 80GB HBM3 at 700
+# W).  qwen2-moe-a2.7b: excess 0.04188 / 0.05126 / 0.05021 / 0.03963 /
+# 0.05854, max |diff| 0.05 / 0.05272 / 0.0564 / 0.0577 / 0.06862, relative
+# L2 0.01252 / 0.0132 / 0.01257 / 0.01249 / 0.01452.  mixtral-8x7b (8
+# layers): excess 0.05064 / 0.05561 / 0.05137 / 0.04721 / 0.04788, max
+# |diff| 0.06273 / 0.06373 / 0.08003 / 0.05522 / 0.06063, relative L2
+# 0.01135 / 0.01168 / 0.01345 / 0.01047 / 0.01125
+MOE_LOGIT_TOL = {
+    "qwen2-moe-a2.7b": {"atol": 0.1171, "rtol": 0.05, "max_abs": 0.1372,
+                        "rel_l2": 0.02904},
+    "mixtral-8x7b": {"atol": 0.1112, "rtol": 0.05, "max_abs": 0.1601,
+                     "rel_l2": 0.0269},
+}
+# one MoE layer in bfloat16 against the same layer in float32 on the same
+# input (identical routing): relative L2 of the output.  bfloat16 rounds the
+# dispatch buffers, the gate and up products and their activated product,
+# each at most 2^-9 relative, and the weights themselves are the same
+MOE_LAYER_REL_L2 = 1e-2
+# (this cannot tell a bfloat16-rounded down product: that adds ~1e-3 in
+# quadrature to ~4e-3).  So ``_experts``' down product is held against the
+# float32 product of the same bfloat16 operands, relative L2: float32
+# accumulation in another order reads 1.7e-6 (qwen2-moe-a2.7b) and 1.7e-5
+# (mixtral-8x7b's 14,336-long sums), a bfloat16-rounded product 1.7e-3,
+# which the check must reject (H100 80GB HBM3, 700 W)
+MOE_DOWN_REL_L2 = 1e-4
 
 
 def _median_ms(fn, reps: int = REPS, warmup: int = 3) -> float:
@@ -1823,65 +1913,236 @@ def _mean_times(a: dict, b: dict) -> dict:
     return out
 
 
-def _plain_witness(fa_ref, fd_ref, params, cfg, toks, max_len):
+def _plain_witness(fa_ref, fd_ref, params, cfg, toks, max_len, probe=None):
     """The plain versions in the kernels' places: the last prefill logits
     of ``toks`` and those of decoding its last token after a prefill one
     token shorter (how far the model's own bfloat16 path moves prefill
-    from decode without the kernels)."""
+    from decode without the kernels).  With ``probe`` (an MoE model's
+    ``_MoeProbe``) the first prefill's expert choices are recorded, left
+    in ``probe.routes``, and replayed in the shorter prefill and the
+    decode step, so that both paths route every token alike."""
     from repro_torch.models import attention as attn_mod
     from repro_torch.models import decode_step, prefill_forward
     calls = attn_mod.attention, attn_mod.decode_attention
     attn_mod.attention, attn_mod.decode_attention = fa_ref, fd_ref
     try:
+        if probe:
+            probe.record = True
         last = prefill_forward(params, toks, cfg, max_len)[0]
+        if probe:
+            probe.record = False
+            probe.replay = [r[:-1] for r in probe.routes]
         _, short = prefill_forward(params, toks[:, :-1], cfg, max_len)
+        if probe:
+            probe.replay = [r[-1:] for r in probe.routes]
         via_decode = decode_step(params, short, toks[:, -1:], cfg)[0]
     finally:
         attn_mod.attention, attn_mod.decode_attention = calls
     return last, via_decode
 
 
-def _gemma_inputs(torch, cfg, seed, device):
-    """Phase 10's random weights and prompt at ``seed``."""
+def _lm_inputs(torch, cfg, spec, seed, device):
+    """A language-model phase's random weights and prompt at ``seed``."""
     from repro_torch.models import init_params
     params = init_params(seed, cfg, device=device)
-    rng = np.random.default_rng(seed + 10)
-    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (1, GEMMA["prompt"]),
+    rng = np.random.default_rng(seed + spec["phase"])
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (1, spec["prompt"]),
                                          dtype=np.int64)).to(device)
     return params, toks
 
 
-def logit_floor(torch, seeds, device) -> None:
-    """``--logit-floor``: phase 10's plain witness alone (no kernel is
-    built or run) at each seed, and the element excess
-    max(|diff| - rtol |want|) that ``LOGIT_TOL``'s atol is set from
-    (twice the largest over the seeds)."""
+def logit_floor(torch, seeds, device, arch=GEMMA["arch"]) -> None:
+    """``--logit-floor``: the plain witness of phase 10 (or, with
+    ``--arch``, of phase 22 or 23, at a capacity where nothing drops and
+    with the prefill's expert choices replayed) alone — no kernel is
+    built or run — at each seed, and the element excess max(|diff| - rtol
+    |want|) that ``LOGIT_TOL``'s (or ``MOE_LOGIT_TOL``'s) atol is set
+    from (twice the largest over the seeds)."""
     from repro_torch import configs
     from repro_torch.kernels.flash_attention.ref import (chunked_attention,
                                                          decode_ref)
-    cfg = configs.get(GEMMA["arch"])
-    max_len = GEMMA["prompt"] + GEMMA["decode_steps"]
+    from repro_torch.models import moe as moe_mod
+    spec = {s["arch"]: s for s in (GEMMA, QWEN_MOE, MIXTRAL)}[arch]
+    if spec is GEMMA:
+        cfg, tol = configs.get(arch), LOGIT_TOL
+    else:
+        cfg, tol = _no_drop(_moe_config(spec)), MOE_LOGIT_TOL[arch]
+    max_len = spec["prompt"] + spec["decode_steps"]
     excess = []
     for seed in seeds:
-        params, toks = _gemma_inputs(torch, cfg, seed, device)
-        last, via_decode = _plain_witness(chunked_attention, decode_ref,
-                                          params, cfg, toks, max_len)
+        params, toks = _lm_inputs(torch, cfg, spec, seed, device)
+        with _MoeProbe(moe_mod) as probe:
+            last, via_decode = _plain_witness(
+                chunked_attention, decode_ref, params, cfg, toks, max_len,
+                probe if cfg.is_moe else None)
+            drops = sum(probe.take_drops())
         del params
         diff = (via_decode - last).abs()
-        over = float((diff - LOGIT_TOL["rtol"] * last.abs()).max())
+        over = float((diff - tol["rtol"] * last.abs()).max())
         excess.append(over)
-        beyond = int((diff > LOGIT_TOL["atol"] + LOGIT_TOL["rtol"] *
-                      last.abs()).sum())
-        print(f"logit floor, seed {seed}: plain prefill vs decode max |diff| "
-              f"{float(diff.max()):.4g}, relative L2 "
+        beyond = int((diff > tol["atol"] + tol["rtol"] * last.abs()).sum())
+        print(f"logit floor, {arch}, seed {seed}: plain prefill vs decode "
+              f"max |diff| {float(diff.max()):.4g}, relative L2 "
               f"{float(diff.norm() / last.norm()):.4g}, element excess "
-              f"max(|diff| - {LOGIT_TOL['rtol']} |want|) {over:.4g}, "
-              f"{beyond} beyond atol {LOGIT_TOL['atol']} + rtol "
-              f"{LOGIT_TOL['rtol']}; argmax {int(last.argmax())} / "
-              f"{int(via_decode.argmax())}", flush=True)
+              f"max(|diff| - {tol['rtol']} |want|) {over:.4g}, {beyond} "
+              f"beyond atol {tol['atol']} + rtol {tol['rtol']}; argmax "
+              f"{int(last.argmax())} / {int(via_decode.argmax())}; "
+              f"{drops} pairs dropped", flush=True)
         torch.cuda.empty_cache()
-    print(f"logit floor: largest element excess {max(excess):.4g} over "
-          f"seeds {list(seeds)}; twice it {2 * max(excess):.4g}", flush=True)
+    print(f"logit floor, {arch}: largest element excess {max(excess):.4g} "
+          f"over seeds {list(seeds)}; twice it {2 * max(excess):.4g}",
+          flush=True)
+
+
+def _lm_main_path(torch, fa, params, toks, cfg, spec, tag, layers) -> dict:
+    """A language model's main path as a user drives it: the launch
+    counts set to 0, one prefill of ``toks`` and ``spec["decode_steps"]``
+    greedy decode steps.  The attention inputs of the first ``layers``
+    layers are captured in the prefill and the first decode step, and an
+    MoE model's first MoE layer's parameters and input in the prefill;
+    the capture wrappers come off before the timed decode steps, which
+    run with only the launch counters.  Checks the launches, shapes and
+    finite logits and prints the times.  Returns ``last``, the captures
+    (``fwd``, ``dec``, ``moe``) and the launch counts."""
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import decode_step, prefill_forward
+    from repro_torch.models import transformer as tf_mod
+
+    n, steps = spec["prompt"], spec["decode_steps"]
+    max_len = n + steps
+    run = {"fwd": [], "dec": [], "moe": []}
+    calls = attn_mod.attention, attn_mod.decode_attention, tf_mod.moe_forward
+    fwd_call, dec_call, moe_call = calls
+
+    def fwd_capture(q, k, v, **kw):
+        if len(run["fwd"]) < layers:
+            run["fwd"].append((q, k, v, kw))
+        return fwd_call(q, k, v, **kw)
+
+    def dec_capture(q, kc, vc, lengths, **kw):
+        if len(run["dec"]) < layers:
+            run["dec"].append((q, kc.clone(), vc.clone(), lengths.clone(),
+                               kw))
+        return dec_call(q, kc, vc, lengths, **kw)
+
+    def moe_capture(p, h, c):
+        if not run["moe"]:
+            run["moe"].append((p, h))
+        return moe_call(p, h, c)
+
+    attn_mod.attention, attn_mod.decode_attention = fwd_capture, dec_capture
+    tf_mod.moe_forward = moe_capture
+    try:
+        fa.attention.launches = 0
+        fa.decode_attention.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        last, cache = prefill_forward(params, toks, cfg, max_len)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        token = last.argmax(dim=-1, keepdim=True)
+        t0 = time.perf_counter()
+        logits, cache = decode_step(params, cache, token, cfg)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+    finally:
+        attn_mod.attention, attn_mod.decode_attention, \
+            tf_mod.moe_forward = calls
+    token = logits.argmax(dim=-1, keepdim=True)
+    t0 = time.perf_counter()
+    for _ in range(steps - 1):
+        logits, cache = decode_step(params, cache, token, cfg)
+        token = logits.argmax(dim=-1, keepdim=True)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    fwd_launches = fa.attention.launches
+    dec_launches = fa.decode_attention.launches
+    peak = torch.cuda.max_memory_allocated()
+    if fwd_launches != cfg.n_layers or dec_launches != cfg.n_layers * steps:
+        raise AssertionError(f"{tag}: {fwd_launches} forward and "
+                             f"{dec_launches} decode launches, want "
+                             f"{cfg.n_layers} and {cfg.n_layers * steps}")
+    if not (bool(torch.isfinite(last).all())
+            and bool(torch.isfinite(logits).all())):
+        raise AssertionError(f"{tag}: non-finite logits")
+    if tuple(last.shape) != (1, cfg.vocab) or int(
+            cache["lengths"][0]) != max_len:
+        raise AssertionError(f"{tag}: logits {tuple(last.shape)}, length "
+                             f"{int(cache['lengths'][0])}")
+    step_ms = 1e3 * decode_s / (steps - 1)
+    bound = ""
+    if cfg.is_moe:
+        bound_ms = _expert_bytes(cfg) / HBM_BYTES_PER_S * 1e3
+        bound = (f" against {bound_ms:.3f} ms to read the routed experts' "
+                 f"{_expert_bytes(cfg) / 1e9:.2f} GB once at "
+                 f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s "
+                 f"({step_ms / bound_ms:.1f}x)")
+    print(f"{tag}: first prefill of {n} tokens in {prefill_s:.4f} s = "
+          f"{n / prefill_s:.0f} tokens/s; first decode step {first_s:.4f} s "
+          f"(both include one-time library and allocator set-up); "
+          f"{steps - 1} further decode steps in {decode_s:.4f} s = "
+          f"{step_ms:.3f} ms per step (B=1, cache {n + 1}-{max_len - 1})"
+          f"{bound}; {fwd_launches} flash forward and {dec_launches} flash "
+          f"decode launches; peak device memory {peak / 2**30:.2f} GiB",
+          flush=True)
+    run.update(last=last, fwd_launches=fwd_launches,
+               dec_launches=dec_launches)
+    return run
+
+
+def _kernel_cases(torch, fa, fa_ref, fd_ref, run, tag) -> tuple:
+    """The attention kernels against their plain versions on the layer
+    inputs ``_lm_main_path`` captured (faults reported, not required to
+    fail): the forward's and the decode's times, layer by layer."""
+    fwd_t, dec_t = [], []
+    for layer, (q, k, v, kw) in enumerate(run.pop("fwd")):
+        label = (f"{tag} layer {layer} prefill q{tuple(q.shape)} "
+                 f"k{tuple(k.shape)} window={kw['window']}")
+        fwd_t.append(_fa_case(torch, fa, fa_ref, q.contiguous(),
+                              k.contiguous(), v.contiguous(), True,
+                              kw["window"], kw["softcap"], "bfloat16", label,
+                              timed=True, must_reject=False))
+    for layer, (q, kc, vc, lengths, kw) in enumerate(run.pop("dec")):
+        label = (f"{tag} layer {layer} decode q{tuple(q.shape)} "
+                 f"cache{tuple(kc.shape)} lengths {lengths.tolist()} "
+                 f"window={kw['window']}")
+        dec_t.append(_fd_case(torch, fa, fd_ref, q.contiguous(), kc, vc,
+                              lengths, kw["window"], kw["softcap"],
+                              "bfloat16", label, timed=True,
+                              must_reject=False))
+    return fwd_t, dec_t
+
+
+def _one_decode_kernel_a_layer(events, cfg, tag) -> None:
+    """A profiled decode step ran exactly one ``decode_cluster`` a layer
+    and no other decode kernel: the decode is one launch a call."""
+    decode_kernels = {ev.key: ev.count for ev in events
+                      if "decode" in ev.key}
+    if decode_kernels != {k: cfg.n_layers for k in decode_kernels} or \
+            len(decode_kernels) != 1 or \
+            not any(FD_KERNELS[0] in k for k in decode_kernels):
+        raise AssertionError(f"{tag}: one decode step ran the decode "
+                             f"kernels {decode_kernels}, want "
+                             f"{FD_KERNELS[0]} x {cfg.n_layers}")
+    print(f"{tag}: the decode step's profile holds {cfg.n_layers} "
+          f"{FD_KERNELS[0]} launches and no other decode kernel",
+          flush=True)
+
+
+def _witness_gaps(torch, tag, n, tol, via_decode, last, plain_via,
+                  plain_last, plain_dec, failures) -> None:
+    """The four logit checks of a model phase: prefill vs decode with the
+    kernels and with the plain versions, and kernel vs plain on each
+    path."""
+    for what, got, want in (
+            ("kernels: last prefill logits vs decoding the last token after "
+             f"a {n - 1}-token prefill", via_decode, last),
+            ("plain versions: the same (the model's own bfloat16 path)",
+             plain_via, plain_last),
+            (f"prefill of {n} tokens, kernel vs plain", last, plain_last),
+            (f"decode step on one {n - 1}-token cache, kernel vs plain",
+             via_decode, plain_dec)):
+        _logit_gap(torch, tag, what, got, want, tol, failures)
 
 
 def phase_gemma(torch, fa, fa_ref, fd_ref, device):
@@ -1898,95 +2159,21 @@ def phase_gemma(torch, fa, fa_ref, fd_ref, device):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    params, toks = _gemma_inputs(torch, cfg, SEED, device)
+    params, toks = _lm_inputs(torch, cfg, GEMMA, SEED, device)
     torch.cuda.synchronize()
     print(f"gemma: {cfg.name} at full width ({cfg.n_layers} layers, d_model "
           f"{cfg.d_model}, {cfg.n_params()} parameters, {cfg.param_dtype}) "
           f"with random weights from seed {SEED} in "
           f"{time.perf_counter() - t0:.1f} s; windows of layers 0-3 "
           f"{windows[:4]}", flush=True)
-    n, steps = GEMMA["prompt"], GEMMA["decode_steps"]
-    max_len = n + steps
+    n = GEMMA["prompt"]
+    max_len = n + GEMMA["decode_steps"]
 
-    # capture the real inputs of layers 0 (windowed) and 1 (global)
-    captured = {"fwd": [], "dec": []}
-    fwd_call, dec_call = attn_mod.attention, attn_mod.decode_attention
-
-    def fwd_capture(q, k, v, **kw):
-        if len(captured["fwd"]) < 2:
-            captured["fwd"].append((q, k, v, kw))
-        return fwd_call(q, k, v, **kw)
-
-    def dec_capture(q, kc, vc, lengths, **kw):
-        if len(captured["dec"]) < 2:
-            captured["dec"].append((q, kc.clone(), vc.clone(),
-                                    lengths.clone(), kw))
-        return dec_call(q, kc, vc, lengths, **kw)
-
-    attn_mod.attention, attn_mod.decode_attention = fwd_capture, dec_capture
-    try:
-        fa.attention.launches = 0
-        fa.decode_attention.launches = 0
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        last, cache = prefill_forward(params, toks, cfg, max_len)
-        torch.cuda.synchronize()
-        prefill_s = time.perf_counter() - t0
-        token = last.argmax(dim=-1, keepdim=True)
-        t0 = time.perf_counter()
-        logits, cache = decode_step(params, cache, token, cfg)
-        torch.cuda.synchronize()
-        first_s = time.perf_counter() - t0
-        token = logits.argmax(dim=-1, keepdim=True)
-        t0 = time.perf_counter()
-        for _ in range(steps - 1):
-            logits, cache = decode_step(params, cache, token, cfg)
-            token = logits.argmax(dim=-1, keepdim=True)
-        torch.cuda.synchronize()
-        decode_s = time.perf_counter() - t0
-        fwd_launches = fa.attention.launches
-        dec_launches = fa.decode_attention.launches
-    finally:
-        attn_mod.attention, attn_mod.decode_attention = fwd_call, dec_call
-    peak = torch.cuda.max_memory_allocated()
-    if fwd_launches != cfg.n_layers or dec_launches != cfg.n_layers * steps:
-        raise AssertionError(f"gemma: {fwd_launches} forward and "
-                             f"{dec_launches} decode launches, want "
-                             f"{cfg.n_layers} and {cfg.n_layers * steps}")
-    if not (bool(torch.isfinite(last).all())
-            and bool(torch.isfinite(logits).all())):
-        raise AssertionError("gemma: non-finite logits")
-    if tuple(last.shape) != (1, cfg.vocab) or int(
-            cache["lengths"][0]) != max_len:
-        raise AssertionError(f"gemma: logits {tuple(last.shape)}, length "
-                             f"{int(cache['lengths'][0])}")
-    print(f"gemma: first prefill of {n} tokens in {prefill_s:.4f} s = "
-          f"{n / prefill_s:.0f} tokens/s; first decode step {first_s:.4f} s "
-          f"(both include one-time library and allocator set-up); "
-          f"{steps - 1} further decode steps in {decode_s:.4f} s = "
-          f"{1e3 * decode_s / (steps - 1):.3f} ms per step (B=1, cache "
-          f"{n + 1}-{max_len - 1}); {fwd_launches} flash forward and "
-          f"{dec_launches} flash decode launches; peak device memory "
-          f"{peak / 2**30:.2f} GiB", flush=True)
-
-    # the kernels on the captured layer inputs
-    fwd_t, dec_t = [], []
-    for (q, k, v, kw), layer in zip(captured["fwd"], (0, 1)):
-        label = (f"gemma layer {layer} prefill q{tuple(q.shape)} "
-                 f"k{tuple(k.shape)} window={kw['window']}")
-        fwd_t.append(_fa_case(torch, fa, fa_ref, q.contiguous(),
-                              k.contiguous(), v.contiguous(), True,
-                              kw["window"], kw["softcap"], "bfloat16", label,
-                              timed=True, must_reject=False))
-    for (q, kc, vc, lengths, kw), layer in zip(captured["dec"], (0, 1)):
-        label = (f"gemma layer {layer} decode q{tuple(q.shape)} "
-                 f"cache{tuple(kc.shape)} lengths {lengths.tolist()} "
-                 f"window={kw['window']}")
-        dec_t.append(_fd_case(torch, fa, fd_ref, q.contiguous(), kc, vc,
-                              lengths, kw["window"], kw["softcap"],
-                              "bfloat16", label, timed=True,
-                              must_reject=False))
-    del captured, cache
+    # the main path, layers 0 (windowed) and 1 (global) captured, and the
+    # kernels on their inputs
+    run = _lm_main_path(torch, fa, params, toks, cfg, GEMMA, "gemma", 2)
+    last = run["last"]
+    fwd_t, dec_t = _kernel_cases(torch, fa, fa_ref, fd_ref, run, "gemma")
 
     # prefill-then-decode: the last prompt token's logits both ways, the
     # second prefill timed warm, the decode step under the profiler
@@ -2002,56 +2189,29 @@ def phase_gemma(torch, fa, fa_ref, fd_ref, device):
         logits=decode_step(params, short_cache, toks[:, -1:], cfg)[0]),
         f"gemma: one decode step (B=1, cache {n})")
     via_decode = out["logits"]
-    # exactly one decode kernel a layer: the decode is one launch a call
-    decode_kernels = {ev.key: ev.count for ev in events
-                      if "decode" in ev.key}
-    if decode_kernels != {k: cfg.n_layers for k in decode_kernels} or \
-            len(decode_kernels) != 1 or \
-            not any(FD_KERNELS[0] in k for k in decode_kernels):
-        raise AssertionError(f"gemma: one decode step ran the decode "
-                             f"kernels {decode_kernels}, want "
-                             f"{FD_KERNELS[0]} x {cfg.n_layers}")
-    print(f"gemma: the decode step's profile holds {cfg.n_layers} "
-          f"{FD_KERNELS[0]} launches and no other decode kernel",
-          flush=True)
+    _one_decode_kernel_a_layer(events, cfg, "gemma")
 
     # the second witness: the same paths with the plain versions in the
     # kernels' places — kernel vs plain on each path, and how far the
     # model's own bfloat16 path moves prefill from decode without them
+    calls = attn_mod.attention, attn_mod.decode_attention
     attn_mod.attention, attn_mod.decode_attention = fa_ref, fd_ref
     try:
         plain_dec = decode_step(params, short_cache, toks[:, -1:], cfg)[0]
     finally:
-        attn_mod.attention, attn_mod.decode_attention = fwd_call, dec_call
+        attn_mod.attention, attn_mod.decode_attention = calls
     del short_cache
     plain_last, plain_via_decode = _plain_witness(fa_ref, fd_ref, params,
                                                   cfg, toks, max_len)
-    tol, failures = LOGIT_TOL, []
-    for what, got, want in (
-            ("kernels: last prefill logits vs decoding the last token after "
-             f"a {n - 1}-token prefill", via_decode, last),
-            ("plain versions: the same (the model's own bfloat16 path)",
-             plain_via_decode, plain_last),
-            (f"prefill of {n} tokens, kernel vs plain", last, plain_last),
-            (f"decode step on one {n - 1}-token cache, kernel vs plain",
-             via_decode, plain_dec)):
-        diff = (got - want).abs()
-        worst, rel = float(diff.max()), float(diff.norm() / want.norm())
-        beyond = int((diff > tol["atol"] + tol["rtol"] * want.abs()).sum())
-        print(f"gemma logits, {what}: max |diff| {worst:.4g}, relative L2 "
-              f"{rel:.3g} over |logits| <= {float(want.abs().max()):.4g}, "
-              f"{beyond} beyond atol + rtol (limits {tol}); argmax "
-              f"{int(want.argmax())} / {int(got.argmax())}", flush=True)
-        if worst > tol["max_abs"] or rel > tol["rel_l2"] or beyond:
-            failures.append(f"gemma logits, {what}: differ by {worst:.4g} "
-                            f"(relative L2 {rel:.3g}, {beyond} beyond atol "
-                            f"+ rtol)")
+    failures = []
+    _witness_gaps(torch, "gemma", n, LOGIT_TOL, via_decode, last,
+                  plain_via_decode, plain_last, plain_dec, failures)
     if failures:
         raise AssertionError("; ".join(failures))
     _profile_step(torch, lambda: prefill_forward(params, toks[:, :-1], cfg,
                                                  max_len),
                   f"gemma: one prefill of {n - 1} tokens")
-    return (params, cfg, fwd_launches, dec_launches,
+    return (params, cfg, run["fwd_launches"], run["dec_launches"],
             _mean_times(*fwd_t), _mean_times(*dec_t))
 
 
@@ -2344,17 +2504,20 @@ def phase_scan(torch, sc, ref, device) -> float:
     return worst
 
 
-def _logit_gap(torch, what, got, want, tol, failures) -> None:
+def _logit_gap(torch, tag, what, got, want, tol, failures) -> None:
+    """Two logit vectors within ``tol``: atol + rtol element by element,
+    max |diff| and relative L2; a miss is appended to ``failures``."""
     diff = (got - want).abs()
     worst, rel = float(diff.max()), float(diff.norm() / want.norm())
-    print(f"falcon-mamba logits, {what}: max |diff| {worst:.4g}, relative "
-          f"L2 {rel:.3g} over |logits| <= {float(want.abs().max()):.4g} "
-          f"(limits {tol}); argmax {int(want.argmax())} / "
-          f"{int(got.argmax())}", flush=True)
-    if worst > tol["max_abs"] or rel > tol["rel_l2"] or bool(
-            (diff > tol["atol"] + tol["rtol"] * want.abs()).any()):
-        failures.append(f"logits, {what}: max |diff| {worst:.4g}, relative "
-                        f"L2 {rel:.3g}")
+    beyond = int((diff > tol["atol"] + tol["rtol"] * want.abs()).sum())
+    print(f"{tag} logits, {what}: max |diff| {worst:.4g}, relative L2 "
+          f"{rel:.3g} over |logits| <= {float(want.abs().max()):.4g}, "
+          f"{beyond} beyond atol + rtol (limits {tol}); argmax "
+          f"{int(want.argmax())} / {int(got.argmax())}", flush=True)
+    if worst > tol["max_abs"] or rel > tol["rel_l2"] or beyond:
+        failures.append(f"{tag} logits, {what}: max |diff| {worst:.4g}, "
+                        f"relative L2 {rel:.3g}, {beyond} beyond atol + "
+                        f"rtol")
 
 
 def _state_gap(torch, what, got, want, tol, failures) -> None:
@@ -2511,7 +2674,8 @@ def phase_falcon_mamba(torch, sc, ref, device):
             (f"prefill of {n} tokens, kernel vs plain", last, plain_last),
             (f"decode step after a {n - 1}-token prefill, kernel vs plain",
              via_decode, plain_via)):
-        _logit_gap(torch, what, got, want, MAMBA_LOGIT_TOL, failures)
+        _logit_gap(torch, "falcon-mamba", what, got, want, MAMBA_LOGIT_TOL,
+                   failures)
     for what, got, want in (
             (f"kernel: {n - 1}-token prefill + one decode step vs {n}-token "
              f"prefill", short, full),
@@ -3628,6 +3792,391 @@ def phase_backends(torch, ops, hc, lr, wc, store, sinks, shards, counts,
           f"{st['host_us'] - ft['host_us']:.1f} us of host", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# Phases 22-23: mixture-of-experts serving (qwen2-moe-a2.7b, mixtral-8x7b)
+# ---------------------------------------------------------------------------
+
+#: the MoE layer's parts, each a module-level function of
+#: ``repro_torch.models.moe`` that ``_moe_split`` puts in a profiler range
+MOE_PARTS = {"_route": "router", "_dispatch": "dispatch",
+             "_experts": "expert GEMMs", "_combine": "combine",
+             "_shared_expert": "shared expert"}
+
+
+def _moe_config(spec):
+    """The phase's configuration: the published one, its depth cut to
+    ``spec["layers"]`` where that is set."""
+    from repro_torch import configs
+    cfg = configs.get(spec["arch"])
+    return cfg.replace(n_layers=spec["layers"]) if spec["layers"] else cfg
+
+
+def _no_drop(cfg):
+    """``cfg`` at capacity_factor E / k: cap >= the tokens of any call, so
+    no pair drops (the witness of prefill against decode)."""
+    return cfg.replace(capacity_factor=cfg.n_experts / cfg.top_k)
+
+
+def _expert_bytes(cfg) -> int:
+    """The routed experts' weight bytes: what one decode step of the
+    reference's formulation reads, every expert over its capacity rows."""
+    return (cfg.n_layers * cfg.n_experts * 3 * cfg.d_model * cfg.expert_d_ff
+            * cfg.param_dtype_.itemsize)
+
+
+class _MoeProbe:
+    """Wraps ``moe._route`` and ``moe._dispatch`` while a phase runs.
+    Counts each call's dropped pairs (device tensors, read after the
+    run); records each call's expert choices where ``record`` is set;
+    and, while ``replay`` holds choices, routes each call to the next of
+    them — the router's probabilities of this call gathered at those
+    experts and renormalised as ``_route`` does — so that two paths whose
+    activations differ by rounding route every token alike.  Never on a
+    timed run: each call adds launches."""
+
+    def __init__(self, moe_mod):
+        self.moe = moe_mod
+        self.route, self.dispatch = moe_mod._route, moe_mod._dispatch
+        self.record, self.replay = False, []
+        self.routes, self.drops = [], []
+
+    def __enter__(self):
+        def route(router_w, x_flat, cfg):
+            weights, experts, aux = self.route(router_w, x_flat, cfg)
+            if self.replay:
+                chosen = self.replay.pop(0)
+                if chosen.shape != experts.shape:
+                    raise AssertionError(f"replayed routes "
+                                         f"{tuple(chosen.shape)} for "
+                                         f"{tuple(experts.shape)}")
+                probs = (x_flat.float() @ router_w).softmax(dim=-1)
+                weights = probs.gather(1, chosen)
+                weights = weights / weights.sum(dim=-1, keepdim=True) \
+                    .clamp(min=1e-9)
+                experts = chosen
+            if self.record:
+                self.routes.append(experts)
+            return weights, experts, aux
+
+        def dispatch(x, weights, experts, e, cap):
+            out = self.dispatch(x, weights, experts, e, cap)
+            self.drops.append(experts.numel() - out.buf_valid.sum())
+            return out
+
+        self.moe._route, self.moe._dispatch = route, dispatch
+        return self
+
+    def __exit__(self, *exc):
+        self.moe._route, self.moe._dispatch = self.route, self.dispatch
+
+    def take_drops(self) -> list:
+        """The dropped pairs of each call since the last take."""
+        out = [int(d) for d in self.drops]
+        self.drops = []
+        return out
+
+    def take_routes(self) -> list:
+        out, self.routes = self.routes, []
+        return out
+
+
+def _moe_split(torch, fn, label) -> None:
+    """One call of ``fn`` under torch.profiler with each MoE part in its
+    own range, and ``unembed`` in one: the device time of the records each
+    range's CUDA calls launched (``_launched_in``), the attention kernels'
+    by name, the rest; the host wall and the busy share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import transformer as tf_mod
+
+    def ranged(f, name):
+        def call(*a, **k):
+            with record_function(name):
+                return f(*a, **k)
+        return call
+
+    saved = {n: getattr(moe_mod, n) for n in MOE_PARTS}
+    unembed = tf_mod.unembed
+    for n, part in MOE_PARTS.items():
+        setattr(moe_mod, n, ranged(saved[n], f"moe {part}"))
+    tf_mod.unembed = ranged(unembed, "unembed")
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        for n, f in saved.items():
+            setattr(moe_mod, n, f)
+        tf_mod.unembed = unembed
+    ranges = [f"moe {p}" for p in MOE_PARTS.values()] + ["unembed"]
+    split, seen = {}, set()
+    on_device = []
+    for name in ranges:
+        inside, _, on_device = _launched_in(prof, name)
+        split[name] = (sum(ev.end_ns() - ev.start_ns() for ev in inside)
+                       / 1e6, len(inside))
+        seen.update(id(ev) for ev in inside)
+    on_device = [ev for ev in on_device if ev.name() not in ranges
+                 and ev.device_type() == DeviceType.CUDA]
+    attn = [ev for ev in on_device if id(ev) not in seen and any(
+        k in ev.name() for k in ("fwd_wgmma", "fwd_rows", "decode_cluster"))]
+    split["attention kernels"] = (
+        sum(ev.end_ns() - ev.start_ns() for ev in attn) / 1e6, len(attn))
+    total = sum(ev.end_ns() - ev.start_ns() for ev in on_device) / 1e6
+    split["other"] = (total - sum(ms for ms, _ in split.values()),
+                      len(on_device) - sum(c for _, c in split.values()))
+    print(f"{label} under torch.profiler: wall {wall * 1e3:.3f} ms, device "
+          f"work {total:.3f} ms = {100 * total / 1e3 / wall:.1f}% busy, "
+          f"{len(on_device)} device records; split: " + "; ".join(
+              f"{name} {ms:.3f} ms ({n})" for name, (ms, n) in split.items()),
+          flush=True)
+
+
+def _down_product_check(torch, moe_mod, cfg, lp, xb, label) -> None:
+    """``_experts`` on one layer's real buffers keeps the down product in
+    float32, as the reference's ``preferred_element_type`` does: its
+    output is float32 and within ``MOE_DOWN_REL_L2`` of the float32
+    product of the same bfloat16 operands, and that same product rounded
+    to bfloat16 (the fault this check is for) must fall outside it."""
+    from repro_torch.models.layers import _act
+    cd = cfg.compute_dtype_
+    xe = xb.to(cd)
+    hid = _act(cfg.activation, torch.bmm(xe, lp["w_gate"].to(cd))) * \
+        torch.bmm(xe, lp["w_up"].to(cd))
+    want = torch.bmm(hid.float(), lp["w_down"].float())
+    del hid
+    yb = moe_mod._experts(lp, xe, cfg)
+    gap = float((yb.float() - want).norm() / want.norm())
+    rounded = float((want.to(cd).float() - want).norm() / want.norm())
+    print(f"{label}: the expert GEMMs' output is {yb.dtype}; relative L2 "
+          f"{gap:.3g} against the float32 product of the same "
+          f"{cd} operands (limit {MOE_DOWN_REL_L2}); a {cd}-rounded "
+          f"product reads {rounded:.3g}", flush=True)
+    if yb.dtype != torch.float32 or gap > MOE_DOWN_REL_L2 or \
+            rounded <= MOE_DOWN_REL_L2:
+        raise AssertionError(f"{label}: the down product is {yb.dtype} at "
+                             f"relative L2 {gap:.3g} (a rounded one reads "
+                             f"{rounded:.3g}; limit {MOE_DOWN_REL_L2})")
+
+
+def _moe_layer_checks(torch, moe_mod, cfg, lp, h, label) -> None:
+    """One MoE layer's real input ``h`` (captured in the prefill): the
+    dispatch on the card against the CPU's bit for bit given the same
+    routing, two calls bit for bit, and the bfloat16 layer against the
+    same layer in float32 on the same input (identical routing)."""
+    d, e = cfg.d_model, cfg.n_experts
+    flat = h.reshape(-1, d)
+    t = flat.shape[0]
+    cap = moe_mod.expert_capacity(cfg, t)
+    weights, experts, _ = moe_mod._route(lp["router"], flat, cfg)
+    shape = (1, t, cfg.top_k)
+    card = moe_mod._dispatch(flat[None], weights.reshape(shape),
+                             experts.reshape(shape), e, cap)
+    host = moe_mod._dispatch(flat[None].cpu(), weights.reshape(shape).cpu(),
+                             experts.reshape(shape).cpu(), e, cap)
+    differ = [name for name, a, b in zip(card._fields, card, host)
+              if not torch.equal(a.cpu(), b)]
+    counts = torch.bincount(experts.flatten(), minlength=e)
+    kept = card.buf_valid.view(e, cap).sum(dim=1)
+    drops = (counts - kept).cpu()
+    host_drops = (torch.bincount(experts.flatten().cpu(), minlength=e)
+                  - host.buf_valid.view(e, cap).sum(dim=1))
+    print(f"{label}: dispatch of {t} tokens x top-{cfg.top_k} into {e} "
+          f"experts x cap {cap}: card vs CPU "
+          f"{'equal bit for bit' if not differ else f'DIFFER in {differ}'}"
+          f" (buf_tok, buf_valid, buf_w, pair_slot, xb); {int(drops.sum())} "
+          f"pairs dropped, by expert (nonzero) "
+          f"{ {i: int(v) for i, v in enumerate(drops.tolist()) if v} }; "
+          f"tokens a expert min / max {int(counts.min())} / "
+          f"{int(counts.max())}", flush=True)
+    if differ or not torch.equal(drops, host_drops):
+        raise AssertionError(f"{label}: the card's dispatch differs from "
+                             f"the CPU's in {differ or ['drops']}")
+    del host
+    _down_product_check(torch, moe_mod, cfg, lp, card.xb[0], label)
+    del card
+    y, aux = moe_mod.moe_forward(lp, h, cfg)
+    again, _ = moe_mod.moe_forward(lp, h, cfg)
+    f32 = cfg.replace(param_dtype="float32", compute_dtype="float32")
+    lp32 = {k: ({kk: vv.float() for kk, vv in v.items()}
+                if isinstance(v, dict) else v.float()) for k, v in lp.items()}
+    _, experts32, _ = moe_mod._route(lp32["router"], flat.float(), f32)
+    y32, aux32 = moe_mod.moe_forward(lp32, h.float(), f32)
+    del lp32
+    rel = float((y.float() - y32).norm() / y32.norm())
+    same_route = torch.equal(experts, experts32)
+    print(f"{label}: two bfloat16 calls "
+          f"{'equal bit for bit' if torch.equal(y, again) else 'DIFFER'}; "
+          f"bfloat16 layer vs float32 layer on the same input: routing "
+          f"{'identical' if same_route else 'DIFFERS'}, max |diff| "
+          f"{float((y.float() - y32).abs().max()):.4g} at RMS "
+          f"{float(y32.norm()) / y32.numel() ** 0.5:.4g}, relative L2 "
+          f"{rel:.3g} (limit {MOE_LAYER_REL_L2}); aux {float(aux):.6g} / "
+          f"{float(aux32):.6g}", flush=True)
+    if not torch.equal(y, again) or not same_route or \
+            rel > MOE_LAYER_REL_L2:
+        raise AssertionError(f"{label}: repeat calls, routing or the "
+                             f"bfloat16 layer (relative L2 {rel:.3g}) failed")
+
+
+def phase_moe(torch, fa, fa_ref, fd_ref, device, spec):
+    """Phases 22-23: a mixture-of-experts model at full width — the main
+    path's launches and times, drops per layer in an untimed run, the
+    attention kernels on one layer's captured inputs, one MoE layer's
+    dispatch and output checked on its captured input, and prefill-vs-
+    decode and kernel-vs-plain logits at a capacity where nothing drops,
+    with the plain prefill's expert choices replayed on every path (a
+    rounding difference near a routing tie would otherwise move a token
+    to another expert; the free-routing gap and flips are printed).
+    Returns (params, cfg)."""
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import decode_step, prefill_forward
+    from repro_torch.models import moe as moe_mod
+
+    cfg = _moe_config(spec)
+    tag = cfg.name
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, toks = _lm_inputs(torch, cfg, spec, SEED, device)
+    torch.cuda.synchronize()
+    full = _moe_config(dict(spec, layers=None))
+    print(f"{tag}: {cfg.n_layers} of {full.n_layers} layers at full width "
+          f"(d_model {cfg.d_model}, {cfg.n_heads} q / {cfg.n_kv_heads} kv "
+          f"heads of {cfg.head_dim_}, {cfg.n_experts} experts top-"
+          f"{cfg.top_k} of d_ff {cfg.expert_d_ff}, {cfg.n_shared_experts} "
+          f"shared slices, window {cfg.sliding_window or 0}; "
+          f"{cfg.n_params()} of {full.n_params()} parameters, "
+          f"{cfg.param_dtype}) with random weights from seed {SEED} in "
+          f"{time.perf_counter() - t0:.1f} s; capacity_factor "
+          f"{cfg.capacity_factor}", flush=True)
+    n, steps = spec["prompt"], spec["decode_steps"]
+    max_len = n + steps
+
+    # the main path at the published capacity factor, layer 0 captured
+    run = _lm_main_path(torch, fa, params, toks, cfg, spec, tag, 1)
+
+    # drops per layer, in an untimed prefill and decode step
+    with _MoeProbe(moe_mod) as probe:
+        last, cache = prefill_forward(params, toks, cfg, max_len)
+        decode_step(params, cache, last.argmax(dim=-1, keepdim=True), cfg)
+        drops = probe.take_drops()
+    del cache
+    prefill_drops, decode_drops = drops[:cfg.n_layers], drops[cfg.n_layers:]
+    if len(decode_drops) != cfg.n_layers:
+        raise AssertionError(f"{tag}: {len(drops)} MoE calls for a prefill "
+                             f"and a decode step of {cfg.n_layers} layers")
+    pairs = n * cfg.top_k * cfg.n_layers
+    print(f"{tag}: prefill pairs dropped per layer at capacity_factor "
+          f"{cfg.capacity_factor} (cap {moe_mod.expert_capacity(cfg, n)} "
+          f"of {n * cfg.top_k} pairs over {cfg.n_experts} experts): "
+          f"{prefill_drops} = {sum(prefill_drops)} of {pairs} "
+          f"({100 * sum(prefill_drops) / pairs:.2f}%); a decode step "
+          f"{sum(decode_drops)} (cap {moe_mod.expert_capacity(cfg, 1)})",
+          flush=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prefill_forward(params, toks[:, :-1], cfg, max_len)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    print(f"{tag}: warm prefill of {n - 1} tokens at capacity_factor "
+          f"{cfg.capacity_factor} in {warm_s:.4f} s = "
+          f"{(n - 1) / warm_s:.0f} tokens/s", flush=True)
+
+    # the kernels and one MoE layer on layer 0's captured inputs
+    _kernel_cases(torch, fa, fa_ref, fd_ref, run, tag)
+    lp, h = run.pop("moe")[0]
+    _moe_layer_checks(torch, moe_mod, cfg, lp, h, f"{tag} layer 0 MoE")
+    del lp, h, run
+    torch.cuda.empty_cache()
+
+    # the witness at a capacity where nothing drops.  The plain prefill's
+    # expert choices are recorded and replayed on every other path (the
+    # plain witness's shorter prefill and decode step, the kernel prefill,
+    # shorter prefill and decode step, the plain decode on the kernel's
+    # cache); the kernel prefill is also run with free routing, and its
+    # flips and gap printed
+    wcfg = _no_drop(cfg)
+    calls = attn_mod.attention, attn_mod.decode_attention
+    with _MoeProbe(moe_mod) as probe:
+        plain_last, plain_via = _plain_witness(fa_ref, fd_ref, params, wcfg,
+                                               toks, max_len, probe)
+        routes = probe.take_routes()
+        probe.record = True
+        free_last = prefill_forward(params, toks, wcfg, max_len)[0]
+        probe.record = False
+        free_routes = probe.take_routes()
+        probe.replay = list(routes)
+        last = prefill_forward(params, toks, wcfg, max_len)[0]
+        probe.replay = [r[:-1] for r in routes]
+        _, short = prefill_forward(params, toks[:, :-1], wcfg, max_len)
+        probe.replay = [r[-1:] for r in routes]
+        via_decode = decode_step(params, short, toks[:, -1:], wcfg)[0]
+        probe.replay = [r[-1:] for r in routes]
+        attn_mod.attention, attn_mod.decode_attention = fa_ref, fd_ref
+        try:
+            plain_dec = decode_step(params, short, toks[:, -1:], wcfg)[0]
+        finally:
+            attn_mod.attention, attn_mod.decode_attention = calls
+        witness_drops = probe.take_drops()
+        unused = len(probe.replay)
+    flips = [int((a != b).sum()) for a, b in zip(free_routes, routes)]
+    print(f"{tag}: free routing — (token, slot) choices that differ between "
+          f"the kernel and the plain {n}-token prefill, per layer: {flips} "
+          f"(of {n * cfg.top_k} a layer); {sum(witness_drops)} pairs "
+          f"dropped over the {len(witness_drops)} MoE calls of the witness "
+          f"runs at capacity_factor {wcfg.capacity_factor:g}", flush=True)
+    free = (free_last - plain_last).abs()
+    print(f"{tag} logits, prefill of {n} tokens, kernel vs plain with free "
+          f"routing (a reading, not a check): max |diff| "
+          f"{float(free.max()):.4g}, relative L2 "
+          f"{float(free.norm() / plain_last.norm()):.3g}", flush=True)
+    tol, failures = MOE_LOGIT_TOL[spec["arch"]], []
+    if sum(witness_drops) or unused:
+        failures.append(f"{sum(witness_drops)} pairs dropped at "
+                        f"capacity_factor {wcfg.capacity_factor:g}, "
+                        f"{unused} replayed routes unused")
+    _witness_gaps(torch, tag, n, tol, via_decode, last, plain_via,
+                  plain_last, plain_dec, failures)
+    if failures:
+        raise AssertionError("; ".join(failures))
+
+    # where the time goes: the decode step and a prefill, split by part
+    _moe_split(torch, lambda: decode_step(params, short, toks[:, -1:], wcfg),
+               f"{tag}: one decode step (B=1, cache {n - 1})")
+    events = _profile_step(torch, lambda: decode_step(
+        params, short, toks[:, -1:], wcfg), f"{tag}: the same step")
+    _one_decode_kernel_a_layer(events, cfg, tag)
+    del short
+    _moe_split(torch, lambda: prefill_forward(params, toks[:, :-1], cfg,
+                                              max_len),
+               f"{tag}: one prefill of {n - 1} tokens at capacity_factor "
+               f"{cfg.capacity_factor}")
+    return params, cfg
+
+
+def phase_moe_serving(torch, fa, params, cfg, device) -> None:
+    """Phase 22's serving: BatchedServer on qwen2-moe-a2.7b."""
+    fa.attention.launches = 0
+    fa.decode_attention.launches = 0
+    server, run = _serve_requests(torch, params, cfg, device, SEED + 22)
+    fwd, dec = fa.attention.launches, fa.decode_attention.launches
+    decode_steps = run["batched"] + run["admit_steps"]
+    if dec != cfg.n_layers * decode_steps or fwd != 0:
+        raise AssertionError(f"{cfg.name} serving: {dec} decode launches "
+                             f"for {decode_steps} decode steps, {fwd} "
+                             f"forward launches for no prefill")
+    print(f"{cfg.name} serving: {_serve_text(cfg, run)}; {dec} flash decode "
+          f"launches (= {cfg.n_layers} x {decode_steps}), {fwd} flash "
+          f"forward launches", flush=True)
+
+
 def main(argv=None) -> int:
     global SEED
     parser = argparse.ArgumentParser(description="Build, check and drive "
@@ -3640,6 +4189,11 @@ def main(argv=None) -> int:
                         help="only measure phase 10's plain witness (the "
                              "model's own prefill-vs-decode logit gap, no "
                              "kernels) at these seeds, and exit")
+    parser.add_argument("--arch", default=GEMMA["arch"],
+                        choices=[GEMMA["arch"], QWEN_MOE["arch"],
+                                 MIXTRAL["arch"]],
+                        help="the model of --logit-floor: phase 10's "
+                             "(default), 22's or 23's")
     args = parser.parse_args(argv)
     SEED = args.seed
     import torch
@@ -3650,7 +4204,8 @@ def main(argv=None) -> int:
         print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                               "--format=csv,noheader"], capture_output=True,
                              text=True, check=True).stdout.strip())
-        logit_floor(torch, args.logit_floor, torch.device("cuda"))
+        logit_floor(torch, args.logit_floor, torch.device("cuda"),
+                    args.arch)
         return 0
     from repro_torch.kernels import _build
     from repro_torch.kernels.fused_fold import ops
@@ -3737,6 +4292,18 @@ def main(argv=None) -> int:
     phase_backends(torch, ops, hc, lr, wc, lr_store, lr_sinks, shards,
                    hc_counts, device)
     del shards, lr_store
+    torch.cuda.empty_cache()
+
+    params, cfg = phase_moe(torch, fa, chunked_attention, decode_ref, device,
+                            QWEN_MOE)
+    torch.cuda.empty_cache()
+    phase_moe_serving(torch, fa, params, cfg, device)
+    del params
+    torch.cuda.empty_cache()
+    params, cfg = phase_moe(torch, fa, chunked_attention, decode_ref, device,
+                            MIXTRAL)
+    del params
+    torch.cuda.empty_cache()
 
     kernel = {"name": "fused_fold", "route": "cuda",
               "source": "src/repro_torch/kernels/fused_fold/csrc/"

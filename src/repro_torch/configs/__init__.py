@@ -2,10 +2,9 @@
 
 Each ported module defines ``CONFIG`` (the published configuration, copied
 from the reference) and ``reduced()`` (a tiny same-family variant for the
-CPU tests).  The port serves the dense token-input attention
-architectures and falcon-mamba-7b (Mamba-1); the other names stay in
-``ARCHS``, and ``get`` /
-``get_reduced`` on them raise ``NotImplementedError`` naming the
+CPU tests).  The port serves the token-input attention architectures,
+dense and mixture-of-experts, and falcon-mamba-7b (Mamba-1); the other
+names stay in ``ARCHS``, and ``get`` / ``get_reduced`` on them raise ``NotImplementedError`` naming the
 ``ROADMAP.md`` item that ports them.
 """
 
@@ -30,8 +29,6 @@ ARCHS = [
 
 #: architectures not ported yet → the ROADMAP item that ports them
 NOT_PORTED = {
-    "qwen2-moe-a2.7b": "Queue A #13c (models/moe.py)",
-    "mixtral-8x7b": "Queue A #13c (models/moe.py)",
     "zamba2-1.2b": "Queue A #13d (mamba2 layers and the shared attention "
                    "block)",
     "internvl2-2b": "Queue A #13e (embedding-input frontends)",

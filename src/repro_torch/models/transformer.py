@@ -1,10 +1,12 @@
 """Model assembly: init / forward / loss / prefill / decode.
 
-The partner of ``repro/models/transformer.py`` for the dense attention
-family (``layer_kind == "attn"`` without experts: gemma2-9b, qwen3-32b,
-stablelm-12b and yi-34b) and the Mamba-1 family (``layer_kind ==
-"mamba1"``: falcon-mamba-7b).  The MoE, mamba2 and shared-attention
-branches raise ``NotImplementedError`` naming their ``ROADMAP.md`` item.
+The partner of ``repro/models/transformer.py`` for the attention
+family (``layer_kind == "attn"``: the dense gemma2-9b, qwen3-32b,
+stablelm-12b and yi-34b, and the mixture-of-experts qwen2-moe-a2.7b and
+mixtral-8x7b, whose FFN is ``models/moe.py``'s) and the Mamba-1 family
+(``layer_kind == "mamba1"``: falcon-mamba-7b).  The mamba2,
+shared-attention and embedding-input branches raise
+``NotImplementedError`` naming their ``ROADMAP.md`` item.
 
 Parameters are nested dicts of tensors with the reference's keys, except
 that ``params["layers"]`` is a Python list of per-layer dicts where the
@@ -32,6 +34,7 @@ from .layers import (Params, embed, embed_init, glu_mlp, glu_mlp_init,
                      layernorm, rmsnorm, unembed)
 from .mamba import (mamba1_decode, mamba1_forward, mamba1_init,
                     mamba1_init_cache)
+from .moe import moe_forward, moe_init
 
 
 def check_ported(cfg: ModelConfig) -> None:
@@ -39,9 +42,6 @@ def check_ported(cfg: ModelConfig) -> None:
     if cfg.layer_kind == "mamba2" or cfg.shared_attn_every > 0:
         raise not_ported(f"{cfg.name}: mamba2 layers and shared attention",
                          "Queue A #13d")
-    if cfg.is_moe:
-        raise not_ported(f"{cfg.name}: mixture-of-experts layers",
-                         "Queue A #13c")
     if cfg.input_mode != "tokens":
         raise not_ported(f"{cfg.name}: embedding inputs", "Queue A #13e")
     if cfg.layer_kind not in ("attn", "mamba1"):
@@ -74,8 +74,8 @@ def _layer_init(gen: torch.Generator, cfg: ModelConfig) -> Params:
     p: Params = {"norm1": _norm_init(cfg, gen.device),
                  "attn": attn_init(gen, cfg),
                  "norm2": _norm_init(cfg, gen.device),
-                 "ffn": glu_mlp_init(gen, cfg.d_model, cfg.d_ff,
-                                     cfg.param_dtype_)}
+                 "ffn": moe_init(gen, cfg) if cfg.is_moe else
+                 glu_mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.param_dtype_)}
     if cfg.post_block_norm:
         p["post_norm1"] = _norm_init(cfg, gen.device)
         p["post_norm2"] = _norm_init(cfg, gen.device)
@@ -104,22 +104,29 @@ def init_params(seed: int, cfg: ModelConfig, *, device="cuda") -> Params:
 # ---------------------------------------------------------------------------
 
 def _ffn_half(lp: Params, x: torch.Tensor, cfg: ModelConfig):
+    """The block's second half: (x + FFN(norm(x)), the layer's aux loss —
+    0.0 for a dense FFN)."""
     h = _apply_norm(lp["norm2"], x, cfg)
-    f = glu_mlp(lp["ffn"], h, cfg.activation, cfg.compute_dtype_)
+    aux = 0.0
+    if cfg.is_moe:
+        f, aux = moe_forward(lp["ffn"], h, cfg)
+    else:
+        f = glu_mlp(lp["ffn"], h, cfg.activation, cfg.compute_dtype_)
     if cfg.post_block_norm:
         f = _apply_norm(lp["post_norm2"], f, cfg)
-    return x + f
+    return x + f, aux
 
 
 def _attn_block(lp: Params, x: torch.Tensor, cfg: ModelConfig, *,
-                window: int, return_kv: bool = False):
-    """Pre-norm attention and MLP with gemma2's sandwich norms."""
+                window: int):
+    """Pre-norm attention and FFN with gemma2's sandwich norms: (x, the
+    layer's aux loss, (k, v))."""
     h = _apply_norm(lp["norm1"], x, cfg)
     a, kv = attn_forward(lp["attn"], h, cfg, window=window, return_kv=True)
     if cfg.post_block_norm:
         a = _apply_norm(lp["post_norm1"], a, cfg)
-    x = _ffn_half(lp, x + a, cfg)
-    return (x, kv) if return_kv else x
+    x, aux = _ffn_half(lp, x + a, cfg)
+    return x, aux, kv
 
 
 def _mamba_block(lp: Params, x: torch.Tensor, cfg: ModelConfig):
@@ -148,16 +155,18 @@ def _logits(params: Params, x: torch.Tensor, cfg: ModelConfig):
 
 def forward(params: Params, inputs: torch.Tensor, cfg: ModelConfig):
     """inputs: (B, S) token ids.  Returns (logits (B, S, vocab) float32,
-    aux loss) — aux is 0 for the dense and Mamba-1 families."""
+    aux loss) — the MoE layers' router losses summed over layers, as the
+    reference's scan carries them; 0 for the dense and Mamba-1 families."""
     check_ported(cfg)
     x = _embed_inputs(params, inputs, cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.layer_kind == "mamba1":
         for lp in params["layers"]:
             x, _ = _mamba_block(lp, x, cfg)
     else:
         for lp, w in zip(params["layers"], window_schedule(cfg)):
-            x = _attn_block(lp, x, cfg, window=w)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+            x, a, _ = _attn_block(lp, x, cfg, window=w)
+            aux = aux + a
     return _logits(params, x, cfg), aux
 
 
@@ -229,7 +238,7 @@ def decode_step(params: Params, cache: dict[str, Any], token: torch.Tensor,
                                   v_cache=cache["v"][i], lengths=lengths)
             if cfg.post_block_norm:
                 a = _apply_norm(lp["post_norm1"], a, cfg)
-            x = _ffn_half(lp, x + a, cfg)
+            x, _ = _ffn_half(lp, x + a, cfg)
     logits = _logits(params, x[:, 0], cfg)
     return logits, dict(cache, lengths=lengths + 1)
 
@@ -254,7 +263,7 @@ def prefill_forward(params: Params, inputs: torch.Tensor, cfg: ModelConfig,
     else:
         for i, (lp, w) in enumerate(zip(params["layers"],
                                         window_schedule(cfg))):
-            x, (k, v) = _attn_block(lp, x, cfg, window=w, return_kv=True)
+            x, _, (k, v) = _attn_block(lp, x, cfg, window=w)
             cache["k"][i, :, :, :s] = k
             cache["v"][i, :, :, :s] = v
     cache["lengths"].fill_(s)

@@ -1,10 +1,12 @@
 """The port's LM serving path (``repro_torch.models``,
 ``repro_torch.launch.serve``) against the reference's.
 
-Each dense attention architecture the port serves — gemma2-9b (windows,
+Each attention architecture the port serves — gemma2-9b (windows,
 softcaps, sandwich norms, GeGLU, (1 + w) norms, tied embeddings),
-qwen3-32b (qk-norm), stablelm-12b (partial rotary, LayerNorm) and yi-34b
-(plain GQA) — runs at its reduced float32 size with the reference's own
+qwen3-32b (qk-norm), stablelm-12b (partial rotary, LayerNorm), yi-34b
+(plain GQA), and the mixture-of-experts qwen2-moe-a2.7b (a shared expert
+behind a sigmoid gate) and mixtral-8x7b (windows on every layer) — runs
+at its reduced float32 size with the reference's own
 parameters (``repro.models.init_params``, handed over by
 ``params_from_reference``) on the CPU, where the attention wrappers run
 their plain versions.
@@ -36,7 +38,8 @@ from repro_torch.models.attention import (attn_decode, cache_write_pos,
                                           window_schedule)
 from repro_torch.models.convert import params_from_reference
 
-ARCHS = ["gemma2-9b", "qwen3-32b", "stablelm-12b", "yi-34b"]
+ARCHS = ["gemma2-9b", "qwen3-32b", "stablelm-12b", "yi-34b",
+         "qwen2-moe-a2.7b", "mixtral-8x7b"]
 TOL = dict(rtol=1e-4, atol=1e-5)
 B, S = 2, 24
 
@@ -78,10 +81,12 @@ def _close(got, want, **tol):
 def test_forward_logits_and_loss_match(models, arch):
     ref_cfg, ref_params, cfg, params = models[arch]
     toks = _tokens(cfg, 1, (B, S))
-    want, _ = ref_models.forward(ref_params, jnp.asarray(toks), ref_cfg)
+    want, ref_aux = ref_models.forward(ref_params, jnp.asarray(toks),
+                                       ref_cfg)
     got, aux = forward(params, torch.from_numpy(toks), cfg)
     assert got.shape == (B, S, cfg.vocab) and got.dtype == torch.float32
-    assert float(aux) == 0.0
+    assert (float(aux) > 0) == cfg.is_moe       # the router losses, summed
+    _close(aux, ref_aux)
     _close(got, want)
     labels = toks.copy()
     labels[:, :3] = -1
@@ -98,8 +103,13 @@ def test_forward_logits_and_loss_match(models, arch):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_prefill_then_decode_match(models, arch):
     """prefill_forward's last logits and k/v caches, then a run of
-    decode_step logits, against the reference's."""
+    decode_step logits, against the reference's.  An MoE model runs at
+    capacity_factor 8.0, where nothing drops, so that the full forward's
+    last logits equal decoding's too."""
     ref_cfg, ref_params, cfg, params = models[arch]
+    if cfg.is_moe:
+        ref_cfg = ref_cfg.replace(capacity_factor=8.0)
+        cfg = cfg.replace(capacity_factor=8.0)
     toks = _tokens(cfg, 2, (B, S))
     prompt, max_len = S - 4, S + 8
     ref_last, ref_cache = ref_models.prefill_forward(
@@ -233,7 +243,9 @@ def test_configs_copy_the_reference():
         assert configs.get_reduced(arch).compute_dtype_ == torch.float32
         for f in ("n_layers", "d_model", "n_heads", "n_kv_heads",
                   "head_dim_", "d_ff", "vocab", "sliding_window",
-                  "attn_softcap", "final_softcap", "rope_pct", "qk_norm"):
+                  "attn_softcap", "final_softcap", "rope_pct", "qk_norm",
+                  "n_experts", "top_k", "expert_d_ff", "n_shared_experts",
+                  "shared_expert_d_ff", "capacity_factor"):
             assert getattr(cfg, f) == getattr(ref, f), (arch, f)
     assert configs.get("gemma2-9b").n_params() == 9_241_401_344
 
@@ -249,7 +261,6 @@ def test_unported_archs_raise_naming_their_roadmap_item(arch):
 
 
 @pytest.mark.parametrize("change,item", [
-    (dict(n_experts=4, top_k=2, expert_d_ff=32), "#13c"),
     (dict(layer_kind="mamba2", ssm_state=4), "#13d"),
     (dict(input_mode="embeddings"), "#13e")])
 def test_unported_families_raise(change, item):
