@@ -382,6 +382,48 @@ card, phase by phase; any mismatch raises and the script exits non-zero:
    Pallas kernel (``jnp.einsum``), so the expert products are
    ``torch.bmm``; their launch counts are printed on earlier lines.
 
+24. Training: gemma2-9b at full width (d_model 3584, 16 q / 8 kv heads
+   of 256, d_ff 14336, vocab 256,000, window 4096 on even layers,
+   softcaps 50 and 30, tied embeddings), its depth cut to 8 of 42 layers
+   (``TRAIN``: 2.50e9 parameters; bfloat16 parameters and gradients,
+   float32 moments and the update's float32 gradients, the float32
+   logits and ``unembed``'s float32 table with their gradients at B = 1,
+   S = 4096 leave no room for more layers under 80 GB), random weights
+   from the seed, remat on.  First two gradient checks at one layer of
+   the same widths, its q projection drawn 8 times larger so that scores
+   reach the softcap's curve; the loss as a relative gap and each leaf as
+   a relative L2 error, each within ``GRAD_FLOOR_FACTOR`` (2) times its
+   own floor, and a planted fault (a backward that drops the softcap)
+   outside some leaf's limit.  (1) On a 256-token prompt, the card's path
+   (``fwd_wgmma`` forward, the chunked backward) against the CPU's plain
+   autograd of the same bfloat16 parameters; the floor is the plain
+   version on the card.  (2) At the main path's shape, B = 1 and S =
+   4096 (four blocks of 1024 keys in the backward), on the card: the
+   card's path and the plain version in blocks against the plain version
+   in float32 with the keys in one block (no online-softmax rescaling);
+   the floor is the plain version in bfloat16 in one block.  Then the
+   main path:
+   the reference's synthetic corpus (``make_store_with_corpus`` →
+   ``PackedLMDataset`` → ``Prefetcher``), ``AdamW`` on ``cosine_schedule``,
+   ``Trainer.run`` for 6 steps at B = 1, S = 4096 (counts set to 0 just
+   before): finite losses and grad norms, ``fwd_wgmma`` launches = layers
+   x steps x microbatches x 2 (the forward and remat's recompute), no
+   decode launch; then 2 steps of ``make_train_step`` at microbatches 2
+   (B = 2) with their launches; a profiled step; step walls, tokens/s,
+   the final checkpoint's time and peak memory.  Restart, at one layer of
+   the full widths (the 8-layer state is 25 GB a checkpoint, and three
+   runs' checkpoints in host memory would not fit): a checkpoint's
+   snapshot, write and restore times, restored bit for bit; a run
+   preempted at step 3 with a checkpoint every 2 steps, resumed by a fresh
+   ``Trainer`` from its bfloat16 checkpoint, whose losses and state must
+   equal an uninterrupted run's bit for bit.  Last, a world of one NCCL
+   rank at the reduced width (float32): ``make_shardmap_train_step``'s
+   int8 all-reduce within half a quantization step of the gradients, its
+   compressed step within ``lr`` of ``make_train_step``'s parameters with
+   the same loss, and its mean step equal bit for bit.  Phase 24 adds no
+   kernel: the reference trains attention through its chunked path, which
+   is the port's backward; the forward launches are of ``fwd_wgmma``.
+
 Before the last line it prints one JSON object ``{"kernels": [...]}``
 (per kernel: launches on its main path, error, kernel / plain / bound /
 library times at its main path's shape; ``fused_fold``'s entry also has
@@ -604,21 +646,29 @@ def _device_records(torch, fn, reps: int = REPS) -> tuple:
     in us and the number of the records it puts on the card (kernels,
     fills, sets, copies), and their names.  The profiler drops a record
     now and then, so each name counts as its records a call rounded to a
-    whole number, each taking that name's mean time."""
+    whole number, each taking that name's mean time; and it has missed a
+    whole session (no device record at all), which is traced again."""
     from collections import defaultdict
 
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    def trace() -> list:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        return [ev for ev in prof.events()
+                if ev.device_type == DeviceType.CUDA]
+
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
+    # ``fn`` always puts work on the card, so a trace with no device record
+    # at all is a capture that missed the session: take it once more
+    events = trace() or trace()
     by_name = defaultdict(list)
-    for ev in prof.events():
-        if ev.device_type == DeviceType.CUDA:
-            by_name[ev.name[:60]].append(_device_us(ev))
+    for ev in events:
+        by_name[ev.name[:60]].append(_device_us(ev))
     per_call = {name: round(len(times) / reps)
                 for name, times in by_name.items()}
     return (sum(statistics.fmean(by_name[n]) * k
@@ -4177,6 +4227,457 @@ def phase_moe_serving(torch, fa, params, cfg, device) -> None:
           f"forward launches", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 24: training
+# ---------------------------------------------------------------------------
+
+#: phase 24's run: gemma2-9b at full width, its depth cut (``layers``);
+#: the gradient checks at one layer, on a short sequence (``grad_seq``)
+#: against the CPU and at the main path's shape on the card; the restart
+#: at one layer (``restart_*``); the NCCL world of one at the reduced width
+TRAIN = {"arch": "gemma2-9b", "phase": 24, "layers": 8, "batch": 1,
+         "seq": 4096, "steps": 6, "mb_steps": 2, "microbatches": 2,
+         "peak_lr": 1e-4, "warmup": 2, "corpus_words": 200_000,
+         "grad_seq": 256, "wq_boost": 8.0, "restart_steps": 5,
+         "preempt_at": 3, "ckpt_every": 2}
+#: the gradient checks' limit: the loss's relative gap and each leaf's
+#: relative L2 error may be at most this many times that quantity's own
+#: floor (the plain version's gap to the same reference)
+GRAD_FLOOR_FACTOR = 2.0
+
+
+def _leaf_names(tree, prefix="") -> list:
+    """Dotted paths of ``tree``'s leaves in ``optim.tree.tree_leaves``
+    order (dict keys sorted, list indices in order)."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree)
+                for n in _leaf_names(tree[k], f"{prefix}{k}.")]
+    if isinstance(tree, (list, tuple)):
+        return [n for i, v in enumerate(tree)
+                for n in _leaf_names(v, f"{prefix}{i}.")]
+    return [prefix[:-1]]
+
+
+def _train_batches(cfg, batch, seq, seed):
+    """The reference's synthetic corpus through the training data
+    pipeline: ``make_store_with_corpus`` → ``PackedLMDataset`` →
+    ``Prefetcher``."""
+    from repro_torch.data import (HashTokenizer, PackedLMDataset,
+                                  Prefetcher, make_store_with_corpus)
+    store, prefix = make_store_with_corpus(TRAIN["corpus_words"], seed=seed)
+    return Prefetcher(iter(PackedLMDataset(
+        store, prefix, HashTokenizer(cfg.vocab), batch=batch, seq_len=seq,
+        seed=seed)))
+
+
+def _grads(torch, params, batch, cfg):
+    """(loss, every gradient leaf) of ``models.loss_fn``."""
+    from repro_torch.models import loss_fn
+    from repro_torch.optim.tree import tree_leaves
+    from repro_torch.runtime.train_step import value_and_grad
+    (loss, _), grads = value_and_grad(loss_fn, params, batch, cfg)
+    return float(loss), tree_leaves(grads)
+
+
+def _gaps(torch, got, want) -> list:
+    """The loss's relative gap, then each leaf's ``||got - want|| /
+    ||want||`` in float64 on ``got``'s device (``want`` moved there a
+    leaf at a time); ``got`` and ``want`` are ``_grads`` results."""
+    out = [abs(got[0] - want[0]) / abs(want[0])]
+    for g, w in zip(got[1], want[1]):
+        w = w.to(g.device, torch.float64)
+        out.append(float((g.double() - w).norm() / w.norm().clamp(
+            min=1e-30)))
+    return out
+
+
+def _hold_grads(label, names, floor, checked: dict, fault) -> list:
+    """Print the loss's and every leaf's floor, limit (GRAD_FLOOR_FACTOR x
+    its own floor), each checked path's gap and the planted fault's; a
+    checked gap over its limit, or a fault inside every limit, is a
+    failure."""
+    failures, caught = [], []
+    for i, name in enumerate(["loss"] + names):
+        limit = GRAD_FLOOR_FACTOR * floor[i]
+        cells = "  ".join(f"{k} {v[i]:.3e}" for k, v in checked.items())
+        print(f"  {name:28s} floor {floor[i]:.3e}  limit {limit:.3e}  "
+              f"{cells}  fault {fault[i]:.3e}")
+        failures += [f"{label}: {k} {name} {v[i]:.3e} > {limit:.3e}"
+                     for k, v in checked.items() if not v[i] <= limit]
+        if fault[i] > limit:
+            caught.append(name)
+    print(f"  the planted fault (no softcap in the backward) falls outside "
+          f"the limit at {caught}", flush=True)
+    if not caught:
+        failures.append(f"{label}: the planted fault (no softcap in the "
+                        f"backward) passed every limit")
+    return failures
+
+
+def _train_grad_check(torch, fa, fa_ref, cfg, device) -> list:
+    """The gradient at one layer of the full widths, bfloat16, in two
+    checks; the card's path is ``fwd_wgmma`` forward and the chunked
+    backward, and a planted fault — a backward that drops the softcap —
+    must fall outside a limit in each.  The layer's q projection is drawn
+    ``wq_boost`` times larger, so that the scores reach the softcap's
+    curve (unit-variance random weights give scores of ~N(0, 1), where
+    tanh(s/50) is linear and no check could see it).
+
+    1. ``grad_seq`` tokens (one block of keys) against the CPU's plain
+       autograd of the same parameters; the floor is the plain version on
+       the card against the CPU (the same function, other GEMMs).
+    2. The main path's shape, B = 1 and S = ``seq`` (``cfg.attn_chunk``
+       keys a block: four blocks, and the online softmax's rescaling
+       between them in the backward), on the card, against the plain
+       version in float32 (the parameters upcast) with the keys in one
+       block — one softmax, no rescaling; the floor is the plain version
+       in bfloat16 with the keys in one block.  Checked: the kernel path
+       and the plain version in blocks (the main path's plain gradient)."""
+    from unittest import mock
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import init_params
+    from repro_torch.optim.tree import tree_map
+    one = cfg.replace(n_layers=1)
+    params = init_params(SEED, one, device=device)
+    params["layers"][0]["attn"]["wq"] = \
+        params["layers"][0]["attn"]["wq"] * TRAIN["wq_boost"]
+    names = _leaf_names(params)
+    rng = np.random.default_rng(SEED + TRAIN["phase"])
+    failures, want_launches = [], 2 if one.remat else 1
+
+    def no_softcap(*args, **kw):
+        return fa_ref(*args, **dict(kw, softcap=None))
+
+    def kernel_runs(batch):
+        """The kernel path's (loss, gradient), its forward launches, and
+        the planted fault's (loss, gradient)."""
+        before = fa.attention.launches
+        got = _grads(torch, params, batch, one)
+        launches = fa.attention.launches - before
+        with mock.patch.object(fa, "chunked_attention", no_softcap):
+            faulty = _grads(torch, params, batch, one)
+        if launches != want_launches:
+            failures.append(f"a checked step made {launches} forward "
+                            f"launches, not {want_launches} (remat "
+                            f"{one.remat}: the forward and the recompute)")
+        return got, launches, faulty
+
+    toks = rng.integers(0, cfg.vocab, (1, TRAIN["grad_seq"] + 1))
+    batch = {"inputs": torch.from_numpy(toks[:, :-1]),
+             "labels": torch.from_numpy(toks[:, 1:])}
+    on_card = {k: v.to(device) for k, v in batch.items()}
+    t0 = time.perf_counter()
+    want = _grads(torch, tree_map(lambda t: t.cpu(), params), batch, one)
+    want = (want[0], [w.float() for w in want[1]])
+    cpu_s = time.perf_counter() - t0
+    got, launches, faulty = kernel_runs(on_card)
+    kernel, fault = _gaps(torch, got, want), _gaps(torch, faulty, want)
+    k_loss = got[0]
+    del got, faulty
+    with mock.patch.object(attn_mod, "attention", fa_ref):
+        plain = _grads(torch, params, on_card, one)
+    print(f"{cfg.name} train, gradient check 1: 1 layer at full width, "
+          f"{TRAIN['grad_seq']} tokens, bfloat16, wq x"
+          f"{TRAIN['wq_boost']:g}, against the CPU's plain autograd "
+          f"({cpu_s:.1f} s); loss card {k_loss:.6f}, card "
+          f"plain {plain[0]:.6f}, CPU {want[0]:.6f}; {launches} forward "
+          f"launch(es); floor: the card's plain version", flush=True)
+    failures += _hold_grads("gradient check 1", names,
+                            _gaps(torch, plain, want), {"kernel": kernel},
+                            fault)
+    del plain, want
+
+    s = TRAIN["seq"]
+    toks = rng.integers(0, cfg.vocab, (1, s + 1))
+    on_card = {"inputs": torch.from_numpy(toks[:, :-1]).to(device),
+               "labels": torch.from_numpy(toks[:, 1:]).to(device)}
+    f32 = one.replace(param_dtype="float32", compute_dtype="float32",
+                      attn_chunk=s)
+    with mock.patch.object(attn_mod, "attention", fa_ref):
+        want = _grads(torch, tree_map(lambda t: t.float(), params),
+                      on_card, f32)
+        floor = _gaps(torch, _grads(torch, params, on_card,
+                                    one.replace(attn_chunk=s)), want)
+        blocks = _gaps(torch, _grads(torch, params, on_card, one), want)
+    got, launches, faulty = kernel_runs(on_card)
+    kernel, fault = _gaps(torch, got, want), _gaps(torch, faulty, want)
+    print(f"{cfg.name} train, gradient check 2: 1 layer at full width, "
+          f"B = 1, S = {s} (the main path's shape), bfloat16, wq x"
+          f"{TRAIN['wq_boost']:g}, on the card; keys in blocks of "
+          f"{one.attn_chunk} ({-(-s // one.attn_chunk)} blocks) against the "
+          f"plain version in float32 with the keys in one block; loss "
+          f"kernel {got[0]:.6f}, float32 {want[0]:.6f}; {launches} forward "
+          f"launch(es); floor: the plain version in bfloat16, keys in one "
+          f"block", flush=True)
+    failures += _hold_grads("gradient check 2", names, floor,
+                            {"kernel": kernel, "plain in blocks": blocks},
+                            fault)
+    return failures
+
+
+def _step_walls(log) -> list:
+    """Per-step walls (s) from a Trainer's cumulative ``steps_per_s``,
+    logged every step."""
+    ends = [m["step"] / m["steps_per_s"] for m in log]
+    return [b - a for a, b in zip([0.0] + ends[:-1], ends)]
+
+
+def _ckpt_text(timings) -> str:
+    """A checkpointer's saves: bytes, snapshot ms and write s each."""
+    return ", ".join(f"step {t['step']}: {t['bytes'] / 1e9:.2f} GB, "
+                     f"snapshot {t['snapshot_s'] * 1e3:.0f} ms, write "
+                     f"{t.get('write_s', float('nan')):.2f} s"
+                     for t in timings)
+
+
+def _train_restart(torch, cfg, device) -> list:
+    """Restart at one layer of the full widths (bfloat16): an
+    uninterrupted run of ``restart_steps`` (the Trainer's step function on
+    the same batches, with no checkpoint); a Trainer preempted at
+    ``preempt_at`` with a checkpoint every ``ckpt_every`` steps; a fresh
+    Trainer resumed from its bfloat16 checkpoint — whose losses and
+    parameters, moments, count and step must equal the uninterrupted
+    run's bit for bit.  Prints every checkpoint's snapshot and write times
+    and the resume's (the restore's) time."""
+    from repro_torch.core.storage import MemoryStore
+    from repro_torch.optim import AdamW, cosine_schedule
+    from repro_torch.optim.tree import tree_leaves
+    from repro_torch.runtime import (PreemptionError, Trainer,
+                                     TrainerConfig, init_train_state,
+                                     make_train_step)
+    one = cfg.replace(n_layers=1)
+    n, at = TRAIN["restart_steps"], TRAIN["preempt_at"]
+    opt = AdamW(lr=cosine_schedule(TRAIN["peak_lr"], TRAIN["warmup"], n))
+    tc = TrainerConfig(checkpoint_every=TRAIN["ckpt_every"], log_every=1)
+
+    def batches():
+        return _train_batches(one, TRAIN["batch"], TRAIN["seq"], SEED)
+
+    step, it = make_train_step(one, opt), batches()
+    ref_state = init_train_state(SEED, one, opt, device)
+    ref_losses = []
+    for _ in range(n):
+        ref_state, m = step(ref_state, next(it))
+        ref_losses.append(float(m["loss"]))
+    failures = []
+    first = Trainer(one, opt, MemoryStore(), tcfg=tc, seed=SEED,
+                    device=device)
+    try:
+        first.run(batches(), n, preempt_at=at)
+        failures.append(f"run() did not raise PreemptionError at {at}")
+    except PreemptionError:
+        pass
+    first.close()
+    saves = list(first.ckpt.timings)
+    store = first.store
+    del first
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    second = Trainer(one, opt, store, tcfg=tc, seed=SEED, device=device)
+    torch.cuda.synchronize()
+    resume_s = time.perf_counter() - t0
+    it = batches()
+    for _ in range(second.start_step):      # the data cursor's replay
+        next(it)
+    state = second.run(it, n)
+    second.close()
+    saves += second.ckpt.timings
+    losses = [m["loss"] for m in second.metrics_log]
+    same = [bool(a.dtype == b.dtype and torch.equal(a, b)) for a, b in
+            zip(tree_leaves(ref_state), tree_leaves(state))]
+    gaps = [float((a.double() - b.double()).abs().max())
+            for a, b in zip(tree_leaves(ref_state), tree_leaves(state))]
+    del second, store
+    print(f"{cfg.name} train, restart at one layer of the full widths: "
+          f"preempted at {at} (checkpoints every {TRAIN['ckpt_every']} "
+          f"steps, MemoryStore, 4 shards: {_ckpt_text(saves)}); a fresh "
+          f"Trainer resumed at the saved step from the bfloat16 checkpoint "
+          f"in {resume_s:.2f} s (its state made, then restored); losses "
+          f"after the restart {[f'{x:.6f}' for x in losses]} against "
+          f"{[f'{x:.6f}' for x in ref_losses[at:]]}; {sum(same)} of "
+          f"{len(same)} state tensors equal bit for bit (largest gap "
+          f"{max(gaps):.3e})", flush=True)
+    if losses != ref_losses[at:] or not all(same):
+        failures.append(f"the continued run differs from the uninterrupted "
+                        f"one: losses {losses} vs {ref_losses[at:]}, "
+                        f"{len(same) - sum(same)} tensors differ (largest "
+                        f"gap {max(gaps):.3e})")
+    return failures
+
+
+def _train_world_of_one(torch, device) -> list:
+    """``make_shardmap_train_step`` in a world of one NCCL rank at the
+    reduced width (float32): the int8 all-reduce of the gradients within
+    half a quantization step of the gradients, leaf by leaf; one
+    compressed step's loss equal to ``make_train_step``'s and its
+    parameters within ``lr`` (Adam's first step is lr times about the
+    sign of each element, which int8 keeps or rounds to 0); the mean
+    all-reduce's step equal to ``make_train_step``'s bit for bit."""
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch import configs
+    from repro_torch.engine.compile import DistributedAxis
+    from repro_torch.optim import AdamW, compressed_psum
+    from repro_torch.optim.tree import tree_leaves
+    from repro_torch.runtime import init_train_state, make_train_step
+    from repro_torch.runtime.train_step import make_shardmap_train_step
+    cfg = configs.get_reduced(TRAIN["arch"])
+    lr = 1e-3
+    opt = AdamW(lr=lr)
+    state = init_train_state(SEED, cfg, opt, device=device)
+    rng = np.random.default_rng(SEED + TRAIN["phase"] + 1)
+    toks = rng.integers(0, cfg.vocab, (2, 129)).astype(np.int32)
+    batch = {"inputs": toks[:, :-1], "labels": toks[:, 1:]}
+    on_card = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+    root = tempfile.mkdtemp(prefix="chip_smoke_train_pg_")
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{root}/pg",
+                            rank=0, world_size=1)
+    failures = []
+    try:
+        axis = DistributedAxis(None)
+        _, grads = _grads(torch, state.params, on_card, cfg)
+        tree = dict(enumerate(grads))
+        reduced = tree_leaves(compressed_psum(tree, axis))
+        worst = 0.0
+        for g, r in zip(grads, reduced):
+            half = max(float(g.abs().max()) / 127 / 2, 1e-30)
+            gap = float((r - g).abs().max())
+            worst = max(worst, gap / half)
+        plain, pm = make_train_step(cfg, opt)(state, batch)
+        mean, mm = make_shardmap_train_step(cfg, opt, axis)(state, batch)
+        comp, cm = make_shardmap_train_step(cfg, opt, axis,
+                                            compress_grads=True)(state, batch)
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+    p_leaves = tree_leaves(plain.params)
+    mean_equal = all(torch.equal(a, b) for a, b in
+                     zip(p_leaves, tree_leaves(mean.params)))
+    comp_gap = max(float((a - b).abs().max()) for a, b in
+                   zip(p_leaves, tree_leaves(comp.params)))
+    print(f"{cfg.name} (reduced, float32) train step in a world of one "
+          f"NCCL rank: int8 all-reduce error at most {worst:.4f} of half a "
+          f"quantization step; compressed step's loss {float(cm['loss']):.6f}"
+          f" vs {float(pm['loss']):.6f}, parameters within "
+          f"{comp_gap:.3e} (lr {lr:g}); mean all-reduce step equal bit for "
+          f"bit: {mean_equal}", flush=True)
+    if not worst <= 1.0 + 1e-5:
+        failures.append(f"int8 all-reduce error {worst:.4f} half-steps")
+    if float(cm["loss"]) != float(pm["loss"]) or not comp_gap <= lr + 1e-6:
+        failures.append(f"compressed step: loss {float(cm['loss'])} vs "
+                        f"{float(pm['loss'])}, parameter gap {comp_gap}")
+    if not mean_equal or float(mm["loss"]) != float(pm["loss"]):
+        failures.append("the mean all-reduce step differs from "
+                        "make_train_step's in a world of one")
+    return failures
+
+
+def phase_train(torch, fa, fa_ref, device) -> None:
+    """Phase 24: gemma2-9b training at full width (``TRAIN["layers"]`` of
+    42 layers, bfloat16 parameters, float32 moments, remat) through the
+    Trainer on the synthetic corpus; the gradient check, the restart
+    check and the world of one.  Every check's numbers print before any
+    failure is raised."""
+    from repro_torch import configs
+    from repro_torch.core.storage import MemoryStore
+    from repro_torch.optim import AdamW, cosine_schedule
+    from repro_torch.runtime import Trainer, TrainerConfig, make_train_step
+
+    full = configs.get(TRAIN["arch"])
+    cfg = full.replace(n_layers=TRAIN["layers"])
+    failures = _train_grad_check(torch, fa, fa_ref, cfg, device)
+    torch.cuda.empty_cache()
+
+    steps, b, s = TRAIN["steps"], TRAIN["batch"], TRAIN["seq"]
+    opt = AdamW(lr=cosine_schedule(TRAIN["peak_lr"], TRAIN["warmup"],
+                                   steps + TRAIN["mb_steps"]))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, opt, MemoryStore(),
+                      tcfg=TrainerConfig(checkpoint_every=10 ** 9,
+                                         log_every=1),
+                      seed=SEED, device=device)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    print(f"{cfg.name} train: {cfg.n_layers} of {full.n_layers} layers at "
+          f"full width (d_model {cfg.d_model}, {cfg.n_heads} q / "
+          f"{cfg.n_kv_heads} kv heads of {cfg.head_dim_}, d_ff {cfg.d_ff}, "
+          f"vocab {cfg.vocab}, window {cfg.sliding_window} on even layers, "
+          f"softcaps {cfg.attn_softcap:g} / {cfg.final_softcap:g}, tied "
+          f"embeddings), {cfg.n_params()} parameters in {cfg.param_dtype}, "
+          f"float32 moments, remat {cfg.remat}; state made in "
+          f"{init_s:.1f} s", flush=True)
+    fa.attention.launches = 0
+    fa.decode_attention.launches = 0
+    t0 = time.perf_counter()
+    state = trainer.run(_train_batches(cfg, b, s, SEED), steps)
+    run_s = time.perf_counter() - t0
+    launches = fa.attention.launches
+    decode_launches = fa.decode_attention.launches
+    walls = _step_walls(trainer.metrics_log)
+    losses = [m["loss"] for m in trainer.metrics_log]
+    norms = [m["grad_norm"] for m in trainer.metrics_log]
+    trainer.close()
+    final = _ckpt_text(trainer.ckpt.timings)
+    del trainer
+    want = cfg.n_layers * steps * 1 * 2
+    warm = statistics.median(walls[1:])
+    print(f"{cfg.name} train: {steps} Trainer steps at B = {b}, S = {s} "
+          f"(microbatches 1): losses {[f'{x:.4f}' for x in losses]}, grad "
+          f"norms {[f'{x:.3f}' for x in norms]}; step walls "
+          f"{[f'{w * 1e3:.1f}' for w in walls]} ms (median after the first "
+          f"{warm * 1e3:.1f} ms = {b * s / warm:.0f} tokens/s); run() {run_s:.1f} s with the "
+          f"final checkpoint ({final}); fwd_wgmma launches {launches} (= layers x "
+          f"steps x microbatches x 2 with remat: the forward and the "
+          f"recompute = {want}), decode launches {decode_launches}",
+          flush=True)
+    if launches != want or decode_launches:
+        failures.append(f"{launches} forward launches (want {want}), "
+                        f"{decode_launches} decode launches (want 0)")
+    if not all(np.isfinite(losses)) or not all(np.isfinite(norms)):
+        failures.append(f"non-finite loss or grad norm: {losses}, {norms}")
+
+    mb = TRAIN["microbatches"]
+    step = make_train_step(cfg, opt, mb)
+    it = _train_batches(cfg, b * mb, s, SEED + 1)
+    fa.attention.launches = 0
+    mb_walls, mb_losses = [], []
+    for _ in range(TRAIN["mb_steps"]):
+        batch = {k: v.reshape((mb, b) + v.shape[1:])
+                 for k, v in next(it).items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        mb_losses.append(float(m["loss"]))
+        mb_walls.append(time.perf_counter() - t0)
+    mb_launches, mb_want = fa.attention.launches, \
+        cfg.n_layers * TRAIN["mb_steps"] * mb * 2
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"{cfg.name} train: {TRAIN['mb_steps']} steps at microbatches "
+          f"{mb} (B = {b * mb}): losses {[f'{x:.4f}' for x in mb_losses]}, "
+          f"walls {[f'{w * 1e3:.1f}' for w in mb_walls]} ms; fwd_wgmma "
+          f"launches {mb_launches} (want {mb_want}); peak device memory "
+          f"{peak:.2f} GiB over the whole loop", flush=True)
+    if mb_launches != mb_want or not all(np.isfinite(mb_losses)):
+        failures.append(f"microbatches {mb}: {mb_launches} launches (want "
+                        f"{mb_want}), losses {mb_losses}")
+    one_step = make_train_step(cfg, opt)
+    batch = next(_train_batches(cfg, b, s, SEED + 2))
+    _profile_step(torch, lambda: one_step(state, batch),
+                  f"{cfg.name} train step (B = {b}, S = {s})")
+    del state, step, one_step
+    torch.cuda.empty_cache()
+
+    failures += _train_restart(torch, cfg, device)
+    torch.cuda.empty_cache()
+    failures += _train_world_of_one(torch, device)
+    torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError(f"{cfg.name} train: " + "; ".join(failures))
+
+
 def main(argv=None) -> int:
     global SEED
     parser = argparse.ArgumentParser(description="Build, check and drive "
@@ -4229,6 +4730,12 @@ def main(argv=None) -> int:
     print(f"device: {name}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}; seed {SEED}")
 
+    started = time.perf_counter()
+
+    def mark(phases: str) -> None:
+        print(f"[phases {phases} done at "
+              f"{time.perf_counter() - started:.1f} s]", flush=True)
+
     t0 = time.perf_counter()
     _build.build_all(["fused_fold", "hash_combine", "flash_attention",
                       "mamba_scan"])
@@ -4242,12 +4749,14 @@ def main(argv=None) -> int:
     fa.library()
     sc.library()
     scan_build_report(torch, _build, sc)
+    mark("1")
 
     worst = phase_kernel(torch, ops, fused_streaming_fold_ref, device)
     main_shape = phase_kernel_main_shape(torch, ops, fused_streaming_fold_ref,
                                          lr, device)
     launches, lr_store, lr_sinks = phase_main_path(torch, ops, lr)
     phase_sessions(ops)
+    mark("2-4")
 
     hc_worst = phase_hash_combine(torch, hc, hash_combine_ref, device)
     t0 = time.perf_counter()
@@ -4260,6 +4769,7 @@ def main(argv=None) -> int:
     hc_launches, hc_counts, hc_wall = phase_wordcount(torch, hc, wc, shards)
     phase_hashed(torch, hc, wc)
     torch.cuda.empty_cache()
+    mark("5-7")
 
     fa_worst = phase_flash_forward(torch, fa, chunked_attention, device)
     fd_worst = phase_flash_decode(torch, fa, decode_ref, device)
@@ -4270,6 +4780,7 @@ def main(argv=None) -> int:
     phase_serving(torch, fa, params, cfg, device)
     del params
     torch.cuda.empty_cache()
+    mark("8-11")
 
     sc_worst = phase_scan(torch, sc, selective_scan_ref, device)
     torch.cuda.empty_cache()
@@ -4279,12 +4790,14 @@ def main(argv=None) -> int:
     phase_mamba_serving(torch, sc, params, cfg, device)
     del params
     torch.cuda.empty_cache()
+    mark("12-14")
 
     phase_batch_job(torch, hc, device)
     phase_job_service(torch, ops, lr, device)
     phase_congestion_chain(torch, ops, lr, device)
     phase_toll_join(torch, ops, lr, device)
     torch.cuda.empty_cache()
+    mark("15-18")
     phase_segment_median(torch, ops, lr)
     torch.cuda.empty_cache()
     phase_group_wordcount(torch, hc, wc, shards, hc_counts, hc_wall)
@@ -4293,6 +4806,7 @@ def main(argv=None) -> int:
                    hc_counts, device)
     del shards, lr_store
     torch.cuda.empty_cache()
+    mark("19-21")
 
     params, cfg = phase_moe(torch, fa, chunked_attention, decode_ref, device,
                             QWEN_MOE)
@@ -4304,6 +4818,11 @@ def main(argv=None) -> int:
                             MIXTRAL)
     del params
     torch.cuda.empty_cache()
+    mark("22-23")
+
+    phase_train(torch, fa, chunked_attention, device)
+    torch.cuda.empty_cache()
+    mark("24")
 
     kernel = {"name": "fused_fold", "route": "cuda",
               "source": "src/repro_torch/kernels/fused_fold/csrc/"

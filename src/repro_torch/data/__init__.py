@@ -1,12 +1,11 @@
-"""Data layer: the paper's text preprocessing, the two tokenizers and the
-synthetic Zipf corpus the batch word count and its benchmarks read.
+"""Data layer: the paper's text preprocessing, the two tokenizers, the
+synthetic Zipf corpus, and the training half of the reference's
+``repro.data`` — packed next-token batches read through the Splitter's
+byte ranges (``PackedLMDataset``) and their host-side ``Prefetcher``."""
 
-The training half of the reference's ``repro.data`` (``PackedLMDataset``
-and its ``Prefetcher``) arrives with the training slice (ROADMAP Queue A
-#13f).
-"""
-
-from .pipeline import synth_corpus
+from .pipeline import (PackedLMDataset, Prefetcher, make_store_with_corpus,
+                       synth_corpus)
 from .tokenizer import HashTokenizer, build_vocab
 
-__all__ = ["HashTokenizer", "build_vocab", "synth_corpus"]
+__all__ = ["HashTokenizer", "PackedLMDataset", "Prefetcher", "build_vocab",
+           "make_store_with_corpus", "synth_corpus"]

@@ -108,11 +108,12 @@ class SimulatedAxis:
 
 class DistributedAxis:
     """One worker per rank of a ``torch.distributed`` process group.  Only
-    ``all_to_all_single``, ``all_gather`` (list form) and ``all_reduce`` are
-    called, so NCCL (CUDA tensors) and gloo (CPU tensors) both serve it;
-    the reduce-scatter is an ``all_to_all_single`` and a sum over the
-    senders in rank order, the same order under either backend.  Boolean
-    tensors travel as ``uint8``.  ``group=None`` is the default group."""
+    ``all_to_all_single``, ``all_gather`` (list form) and ``all_reduce``
+    (sum; max for ``pmax``) are called, so NCCL (CUDA tensors) and gloo
+    (CPU tensors) both serve it; the reduce-scatter is an
+    ``all_to_all_single`` and a sum over the senders in rank order, the
+    same order under either backend.  Boolean tensors travel as
+    ``uint8``.  ``group=None`` is the default group."""
 
     simulated = False
 
@@ -161,6 +162,13 @@ class DistributedAxis:
         """``all_reduce`` (sum) of this rank's contribution."""
         out = self._send(x).clone()
         self._dist.all_reduce(out, group=self.group)
+        return out.to(x.dtype)
+
+    def pmax(self, x: torch.Tensor) -> torch.Tensor:
+        """``all_reduce`` (max) of this rank's value."""
+        out = self._send(x).clone()
+        self._dist.all_reduce(out, op=self._dist.ReduceOp.MAX,
+                              group=self.group)
         return out.to(x.dtype)
 
     def psum_scatter(self, x: torch.Tensor) -> torch.Tensor:

@@ -20,6 +20,14 @@ gives them:
 ``attention.launches`` and ``decode_attention.launches`` count kernel
 launches (one per call on the card), so a run can show that its main path
 went through them.
+
+Training differentiates ``attention`` as the reference does, through the
+chunked path: on the card the call is a ``torch.autograd.Function`` whose
+forward launches the kernel and whose backward recomputes the output
+with ``chunked_attention`` under autograd and returns that vector-Jacobian
+product (no backward kernel: the reference has none).  ``decode_attention``
+has no gradient in either package, so a CUDA input that requires grad
+makes it raise rather than return a result cut off from the graph.
 """
 
 from __future__ import annotations
@@ -137,6 +145,7 @@ def _tma_ready(t: torch.Tensor) -> torch.Tensor:
 
 
 def _attention_cuda(q, k, v, causal, window, softcap, scale):
+    """One launch of the forward kernel (no autograd)."""
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     if d > MAX_HEAD_DIM:
@@ -158,25 +167,61 @@ def _attention_cuda(q, k, v, causal, window, softcap, scale):
     return out
 
 
+class _KernelAttention(torch.autograd.Function):
+    """The kernel's forward with the reference's gradient: the backward
+    recomputes ``chunked_attention`` on the saved q, k and v (same causal,
+    window, softcap, scale and ``chunk``; ``q_offset`` is 0 on the card)
+    and returns its vector-Jacobian product."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap, scale, chunk):
+        ctx.save_for_backward(q, k, v)
+        ctx.args = (causal, window, softcap, scale, chunk)
+        return _attention_cuda(q, k, v, causal, window, softcap, scale)
+
+    @staticmethod
+    def backward(ctx, grad):
+        causal, window, softcap, scale, chunk = ctx.args
+        inputs = [t.detach().requires_grad_(need) for t, need in
+                  zip(ctx.saved_tensors, ctx.needs_input_grad[:3])]
+        with torch.enable_grad():
+            out = chunked_attention(*inputs, causal=causal,
+                                    window=window or None, softcap=softcap,
+                                    scale=scale, chunk=chunk)
+        wanted = [t for t in inputs if t.requires_grad]
+        got = iter(torch.autograd.grad(out, wanted, grad))
+        return tuple(next(got) if t.requires_grad else None
+                     for t in inputs) + (None,) * 5
+
+
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True, window: int | None = None,
-              softcap: float | None = None,
-              scale: float | None = None) -> torch.Tensor:
+              softcap: float | None = None, scale: float | None = None,
+              chunk: int = 1024, q_offset: int = 0) -> torch.Tensor:
     """Attention forward: q (B, Hq, Sq, D) against k, v (B, Hkv, Skv, D)
     → (B, Hq, Sq, D) in q's dtype.
 
     GQA by head grouping (Hq % Hkv == 0); ``causal`` masks keys after the
-    query (query i and key j both count from 0); ``window`` (None or 0 =
-    global) keeps keys with i - j < window; ``softcap`` maps scores to
-    c·tanh(s/c); ``scale`` defaults to D**-0.5.  float32 or bfloat16, all
-    on one device."""
+    query (query i sits at position ``q_offset + i``, key j at j);
+    ``window`` (None or 0 = global) keeps keys with i - j < window;
+    ``softcap`` maps scores to c·tanh(s/c); ``scale`` defaults to
+    D**-0.5.  float32 or bfloat16, all on one device.  Differentiable on
+    either device (see the module's docstring): ``chunk`` is the keys a
+    block of ``chunked_attention``, the CPU's forward and the card's
+    backward (the kernel's forward tiles the keys its own way); the kernel
+    takes ``q_offset`` 0 only, and raises for any other."""
     _check_attention(q, k, v)
     scale = scale if scale is not None else q.shape[-1] ** -0.5
     if q.device.type == "cpu":
         return chunked_attention(q, k, v, causal=causal,
                                  window=window or None, softcap=softcap,
-                                 scale=scale)
-    return _attention_cuda(q, k, v, causal, window, softcap, scale)
+                                 scale=scale, chunk=chunk,
+                                 q_offset=q_offset)
+    if q_offset:
+        raise ValueError(f"the CUDA flash attention takes q_offset 0, got "
+                         f"{q_offset}")
+    return _KernelAttention.apply(q, k, v, causal, window, softcap, scale,
+                                  chunk)
 
 
 attention.launches = 0
@@ -279,6 +324,12 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
         return decode_ref(q, k_cache, v_cache, lengths,
                           window=window or None, softcap=softcap,
                           scale=scale)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (q, k_cache, v_cache)):
+        raise RuntimeError("decode_attention has no gradient on the card "
+                           "(the reference differentiates no decode): call "
+                           "it on tensors that do not require grad, or "
+                           "under torch.no_grad()")
     return _decode_cuda(q, k_cache, v_cache, lengths, window, softcap, scale)
 
 

@@ -15,7 +15,10 @@ runs follows the tensors the caller gives it:
 * CPU tensors run the plain PyTorch version (``ref.py``).
 
 ``scan.launches`` counts kernel launches (one per call on the card), so a
-run can show that its main path went through the kernel.
+run can show that its main path went through the kernel.  The kernel has
+no gradient, so a CUDA input that requires grad (with grad mode on) makes
+``scan`` raise instead of returning a result cut off from the graph; the
+plain version stays differentiable.
 
 ``decode_step`` is the O(1) one-token update of a carried state.  It is
 plain tensor operations on either device, as the reference's is: it has no
@@ -150,6 +153,12 @@ def scan(u: torch.Tensor, delta: torch.Tensor, A: torch.Tensor,
     _check(u, delta, A, B, C, D)
     if u.device.type == "cpu":
         return selective_scan_ref(u, delta, A, B, C, D)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (u, delta, A, B, C, D)):
+        raise RuntimeError("the CUDA scan has no gradient (the reference "
+                           "differentiates its lax.scan, which has no "
+                           "kernel): call it on tensors that do not require "
+                           "grad, or under torch.no_grad()")
     return _scan_cuda(u, delta, A, B, C, D)
 
 

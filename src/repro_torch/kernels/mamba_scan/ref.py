@@ -12,7 +12,9 @@ step-independent terms ``exp(Δ_t·A)`` and ``(Δ_t·u_t) ⊗ B_t`` are formed
 for ``CHUNK`` steps at a time, the recurrence ``h_t = dA_t ⊙ h_{t-1} +
 dBu_t`` walks those steps one by one, and ``y_t = ⟨h_t, C_t⟩`` is
 contracted for the whole chunk at once.  The arithmetic per element is the
-oracle's.
+oracle's.  It is differentiable: under autograd the steps are kept as
+separate tensors, which is how training differentiates the scan (the
+reference differentiates its ``lax.scan``).
 """
 
 from __future__ import annotations
@@ -40,6 +42,10 @@ def selective_scan_ref(u: torch.Tensor, delta: torch.Tensor,
     bsz, length, d = u.shape
     n = A.shape[1]
     af = A.float()
+    # under autograd each step is a fresh tensor (``out=`` records no
+    # gradient); without it the steps are written into one buffer
+    track = torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in (u, delta, A, B, C, D, h0))
     h = (torch.zeros((bsz, d, n), dtype=torch.float32, device=u.device)
          if h0 is None else h0.float().clone())
     ys = []
@@ -52,11 +58,18 @@ def selective_scan_ref(u: torch.Tensor, delta: torch.Tensor,
         cf = C[:, s:e].float().transpose(0, 1)
         d_a = torch.exp(df[..., None] * af)                  # (T, b, d, n)
         d_bu = (df * uf)[..., None] * bf[:, :, None, :]      # (T, b, d, n)
-        hs = torch.empty_like(d_a)
-        for t in range(e - s):
-            h = torch.addcmul(d_bu[t], d_a[t], h, out=hs[t])
+        if track:
+            steps = []
+            for t in range(e - s):
+                h = torch.addcmul(d_bu[t], d_a[t], h)
+                steps.append(h)
+            hs = torch.stack(steps)
+        else:
+            hs = torch.empty_like(d_a)
+            for t in range(e - s):
+                h = torch.addcmul(d_bu[t], d_a[t], h, out=hs[t])
+            h = hs[-1].clone()
         ys.append(torch.einsum("tbdn,tbn->btd", hs, cf))
-        h = hs[-1].clone()
         del d_a, d_bu, hs
     y = torch.cat(ys, dim=1) if ys else torch.zeros(
         (bsz, 0, d), dtype=torch.float32, device=u.device)

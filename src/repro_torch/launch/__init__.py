@@ -1,1 +1,2 @@
-"""Launchers of the LM stack: batched serving (``serve``)."""
+"""Launchers of the LM stack: batched serving (``serve``) and training
+(``train``)."""

@@ -84,7 +84,7 @@ def attn_forward(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
         positions = torch.arange(s, device=x.device)[None].expand(b, s)
     q, k, v = _project_qkv(p, x, cfg, positions)
     o = attention(q, k, v, causal=True, window=window or None,
-                  softcap=cfg.attn_softcap)
+                  softcap=cfg.attn_softcap, chunk=cfg.attn_chunk)
     y = o.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.head_dim_)
     y = linear(p["wo"], y, cfg.compute_dtype_)
     if return_kv:

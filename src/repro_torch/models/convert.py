@@ -7,6 +7,11 @@ with every layer leaf stacked on a leading ``(L, ...)`` axis, and returns
 the port's parameters — the same keys, ``layers`` unstacked into a list
 of per-layer dicts — on ``device``.  bfloat16 arrays (numpy's
 ``ml_dtypes`` type) are reinterpreted bit for bit, so no value changes.
+
+``train_state_from_reference(tree, cfg, device)`` does the same for the
+reference's ``TrainState(params, OptState(m, v, count), step)``: the
+moments unstack like the parameters, count and step become int32
+scalars.
 """
 
 from __future__ import annotations
@@ -17,6 +22,7 @@ import numpy as np
 import torch
 
 from ..engine.plan import resolve_device
+from ..optim import OptState, TrainState
 from .config import ModelConfig
 from .transformer import check_ported
 
@@ -47,4 +53,18 @@ def params_from_reference(tree: dict[str, Any], cfg: ModelConfig,
     return out
 
 
-__all__ = ["params_from_reference"]
+def train_state_from_reference(tree, cfg: ModelConfig, device="cuda"):
+    """The port's ``optim.TrainState`` from the reference's, as numpy
+    arrays (``jax.device_get`` of a ``repro.optim.TrainState``, or any
+    ``(params, (m, v, count), step)`` of the same trees)."""
+    params, (m, v, count), step = tree
+    dev = resolve_device(device)
+    return TrainState(
+        params=params_from_reference(params, cfg, dev),
+        opt_state=OptState(m=params_from_reference(m, cfg, dev),
+                           v=params_from_reference(v, cfg, dev),
+                           count=_tensor(count, dev)),
+        step=_tensor(step, dev))
+
+
+__all__ = ["params_from_reference", "train_state_from_reference"]

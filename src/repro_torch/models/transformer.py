@@ -26,6 +26,7 @@ from typing import Any
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from ..engine.plan import not_ported, resolve_device
 from .attention import attn_decode, attn_forward, attn_init, window_schedule
@@ -37,8 +38,12 @@ from .mamba import (mamba1_decode, mamba1_forward, mamba1_init,
 from .moe import moe_forward, moe_init
 
 
-def check_ported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for a family the port does not run."""
+def check_ported(cfg: ModelConfig, *, train_on=None) -> None:
+    """Raise ``NotImplementedError`` for a family the port does not run —
+    or, given ``train_on`` (the device a training step runs on), does
+    not train there: Mamba-1 trains on the CPU (the plain scan is
+    differentiable) but not on the card, whose ``scan_fwd`` has no
+    gradient."""
     if cfg.layer_kind == "mamba2" or cfg.shared_attn_every > 0:
         raise not_ported(f"{cfg.name}: mamba2 layers and shared attention",
                          "Queue A #13d")
@@ -46,6 +51,10 @@ def check_ported(cfg: ModelConfig) -> None:
         raise not_ported(f"{cfg.name}: embedding inputs", "Queue A #13e")
     if cfg.layer_kind not in ("attn", "mamba1"):
         raise ValueError(cfg.layer_kind)
+    if cfg.layer_kind == "mamba1" and train_on is not None and \
+            torch.device(train_on).type == "cuda":
+        raise not_ported(f"{cfg.name}: Mamba-1 training on the card (the "
+                         f"scan kernel has no gradient)", "Queue A #13f")
 
 
 # ---------------------------------------------------------------------------
@@ -153,20 +162,39 @@ def _logits(params: Params, x: torch.Tensor, cfg: ModelConfig):
 # forward / loss
 # ---------------------------------------------------------------------------
 
+def _train_layer(lp: Params, x: torch.Tensor, cfg: ModelConfig,
+                 window: int):
+    """One layer of the full-sequence forward: (x, the layer's aux
+    loss)."""
+    if cfg.layer_kind == "mamba1":
+        return _mamba_block(lp, x, cfg)[0], 0.0
+    x, aux, _ = _attn_block(lp, x, cfg, window=window)
+    return x, aux
+
+
 def forward(params: Params, inputs: torch.Tensor, cfg: ModelConfig):
     """inputs: (B, S) token ids.  Returns (logits (B, S, vocab) float32,
     aux loss) — the MoE layers' router losses summed over layers, as the
-    reference's scan carries them; 0 for the dense and Mamba-1 families."""
+    reference's scan carries them; 0 for the dense and Mamba-1 families.
+
+    Under autograd with ``cfg.remat``, each layer runs inside
+    ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` of its
+    layer function): its activations are recomputed in the backward, so
+    on the card each attention layer launches the forward kernel twice a
+    step."""
     check_ported(cfg)
     x = _embed_inputs(params, inputs, cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    if cfg.layer_kind == "mamba1":
-        for lp in params["layers"]:
-            x, _ = _mamba_block(lp, x, cfg)
-    else:
-        for lp, w in zip(params["layers"], window_schedule(cfg)):
-            x, a, _ = _attn_block(lp, x, cfg, window=w)
-            aux = aux + a
+    windows = window_schedule(cfg) if cfg.layer_kind == "attn" \
+        else [0] * cfg.n_layers
+    remat = cfg.remat and torch.is_grad_enabled()
+    for lp, w in zip(params["layers"], windows):
+        if remat:
+            x, a = torch.utils.checkpoint.checkpoint(
+                _train_layer, lp, x, cfg, w, use_reentrant=False)
+        else:
+            x, a = _train_layer(lp, x, cfg, w)
+        aux = aux + a
     return _logits(params, x, cfg), aux
 
 

@@ -228,3 +228,38 @@ def crash_program(P, Wn, **build):
             .window(Wn.sliding(20.0, 5.0)).reduce("sum").sink("crash/")
             .build(num_buckets=8, checkpoint_interval=2, job_id="crash",
                    allowed_lateness=1.0, **build))
+
+
+def compressed_psum_body(rank, world, root, grads):
+    """``optim.compressed_psum`` over the ranks of this rank's gradient
+    tree: ``grads`` maps a leaf name to every rank's values stacked on a
+    leading axis (numpy)."""
+    from repro_torch.engine.compile import DistributedAxis
+    from repro_torch.optim import compressed_psum
+    mine = {k: torch.from_numpy(v[rank]) for k, v in grads.items()}
+    out = compressed_psum(mine, DistributedAxis(None))
+    save(root, rank, {k: (v.dtype, v.float().numpy())
+                      for k, v in out.items()})
+
+
+def shardmap_train_body(rank, world, root, arch, batch, compress):
+    """Two steps of ``make_shardmap_train_step`` on the reduced ``arch``
+    (parameters from seed 0), every rank handed the global ``batch``;
+    saves the parameters (numpy leaves) and the metrics after each."""
+    from repro_torch import configs
+    from repro_torch.engine.compile import DistributedAxis
+    from repro_torch.optim import AdamW
+    from repro_torch.optim.tree import tree_leaves
+    from repro_torch.runtime import init_train_state
+    from repro_torch.runtime.train_step import make_shardmap_train_step
+    cfg = configs.get_reduced(arch)
+    opt = AdamW(lr=1e-3)
+    state = init_train_state(0, cfg, opt, device="cpu")
+    step = make_shardmap_train_step(cfg, opt, DistributedAxis(None),
+                                    compress_grads=compress)
+    params, metrics = [], []
+    for _ in range(2):
+        state, m = step(state, batch)
+        params.append([p.numpy() for p in tree_leaves(state.params)])
+        metrics.append({k: float(v) for k, v in m.items()})
+    save(root, rank, {"params": params, "metrics": metrics})
