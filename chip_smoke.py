@@ -8,7 +8,9 @@
                                      # model's own prefill-vs-decode logit
                                      # gap) at these seeds; no kernels
     python3 chip_smoke.py --logit-floor 0 1 2 3 4 --arch mixtral-8x7b
-                                     # the same for phase 22's or 23's model
+                                     # the same for phase 22's, 23's or
+                                     # (--arch zamba2-1.2b, with the
+                                     # states' gaps) 25's model
 
 Drives ``repro_torch`` (never JAX, never the ``repro`` package) on the
 card, phase by phase; any mismatch raises and the script exits non-zero:
@@ -384,12 +386,13 @@ card, phase by phase; any mismatch raises and the script exits non-zero:
 
 24. Training: gemma2-9b at full width (d_model 3584, 16 q / 8 kv heads
    of 256, d_ff 14336, vocab 256,000, window 4096 on even layers,
-   softcaps 50 and 30, tied embeddings), its depth cut to 8 of 42 layers
-   (``TRAIN``: 2.50e9 parameters; bfloat16 parameters and gradients,
-   float32 moments and the update's float32 gradients, the float32
-   logits and ``unembed``'s float32 table with their gradients at B = 1,
-   S = 4096 leave no room for more layers under 80 GB), random weights
-   from the seed, remat on.  First two gradient checks at one layer of
+   softcaps 50 and 30, tied embeddings), its depth cut to 4 of 42 layers
+   (``TRAIN``: 1.71e9 parameters; 8 layers fit under 80 GB — bfloat16
+   parameters and gradients, float32 moments and the update's float32
+   gradients, the float32 logits and ``unembed``'s float32 table with
+   their gradients at B = 1, S = 4096 — but their 25 GB checkpoint kept
+   the script too near its time limit once phase 25 came), random
+   weights from the seed, remat on.  First two gradient checks at one layer of
    the same widths, its q projection drawn 8 times larger so that scores
    reach the softcap's curve; the loss as a relative gap and each leaf as
    a relative L2 error, each within ``GRAD_FLOOR_FACTOR`` (2) times its
@@ -411,18 +414,60 @@ card, phase by phase; any mismatch raises and the script exits non-zero:
    decode launch; then 2 steps of ``make_train_step`` at microbatches 2
    (B = 2) with their launches; a profiled step; step walls, tokens/s,
    the final checkpoint's time and peak memory.  Restart, at one layer of
-   the full widths (the 8-layer state is 25 GB a checkpoint, and three
+   the full widths (the 4-layer state is 17 GB a checkpoint, and three
    runs' checkpoints in host memory would not fit): a checkpoint's
-   snapshot, write and restore times, restored bit for bit; a run
-   preempted at step 3 with a checkpoint every 2 steps, resumed by a fresh
-   ``Trainer`` from its bfloat16 checkpoint, whose losses and state must
-   equal an uninterrupted run's bit for bit.  Last, a world of one NCCL
+   snapshot, write and restore times, restored bit for bit; a run of 4
+   steps preempted at step 2 (two 11 GB checkpoints: at the preemption
+   and at the end; the periodic cadence is held against the reference's
+   Trainer on the CPU), resumed by a fresh ``Trainer`` from its bfloat16
+   checkpoint, whose losses and state must equal an uninterrupted run's
+   bit for bit for the two steps after the restore.  Last, a world of one NCCL
    rank at the reduced width (float32): ``make_shardmap_train_step``'s
    int8 all-reduce within half a quantization step of the gradients, its
    compressed step within ``lr`` of ``make_train_step``'s parameters with
    the same loss, and its mean step equal bit for bit.  Phase 24 adds no
    kernel: the reference trains attention through its chunked path, which
    is the port's backward; the forward launches are of ``fwd_wgmma``.
+
+25. zamba2-1.2b whole (``configs.get("zamba2-1.2b")``: 38 Mamba-2 layers,
+   d_model 2048, d_inner 4096, 64 SSD heads of 64, ssm_state 64, conv 4;
+   one shared attention block, 32 heads of 64 (GQA group 1, no window, no
+   softcap) and a GELU GLU of 8192, run after layers 5, 11, 17, 23, 29
+   and 35 with one set of weights and six KV caches; 1,170,308,864
+   parameters in bfloat16, random weights from the seed) after the
+   earlier models are freed: one 8,192-token prompt through
+   ``prefill_forward`` (6 ``fwd_wgmma`` launches, counts set to 0 just
+   before), then 16 greedy ``decode_step``s (6 x 16 ``decode_cluster``
+   launches).  The first shared call's real q, k, v and decode inputs are
+   captured and each kernel held against its plain version (faults
+   reported, not required to fail).  (d) Layer 0's real SSD input
+   (``_ssd_chunked``, float32) on the card against the CPU within
+   ``ZAMBA_SSD_REL_L2``, and its closed-form recurrence between the 128
+   chunks against the reference's sequential scan within the same limit,
+   as captured and with the log decays scaled by 1e-3 (random weights'
+   chunk decays underflow, which would leave nothing to carry).  (a, b) The last prefill logits against decoding
+   the last token after an 8,191-token prefill, with the kernels and with
+   the plain versions, and kernel against plain on each path, within
+   ``ZAMBA_LOGIT_TOL``; every layer's ssm and conv state and row 8,191 of
+   the six calls' k and v both ways, and kernel against plain, within
+   ``ZAMBA_STATE_TOL`` (both limits twice the plain path's floor over seeds
+   0-4, ``--logit-floor 0 1 2 3 4 --arch zamba2-1.2b``).  (c) Two planted
+   faults on the kernel path, each required to break its limit by
+   ``ZAMBA_FAULT_FACTOR``: the last chunk padded before the softplus (the
+   8,191-token prompt pads one step, whose dt is then softplus(dt_bias)
+   rather than 0) and a decode walk without the last call of the shared
+   block.  A torch.profiler split of one decode step and one prefill
+   (in/out projections, conv + SiLU + softplus, the SSD's intra-chunk,
+   chunk-state, recurrence and off-diagonal parts, the gated norm, the
+   shared block's GEMMs, ``unembed``; each in its own ``record_function``
+   range, its device records matched by correlation id; the attention
+   kernels by name, which must count 6 ``fwd_wgmma`` a prefill and 6
+   ``decode_cluster`` a step); warm prefill tokens/s, decode ms, busy
+   shares and peak memory.  Then ``BatchedServer`` as in phase 11: every
+   request drains, decode launches = 6 x the decode steps.  Phase 25 adds
+   no kernel: the reference computes the SSD outside any Pallas kernel
+   (``jnp.einsum`` and ``lax.scan``), so the port computes it with
+   PyTorch tensor operations.
 
 Before the last line it prints one JSON object ``{"kernels": [...]}``
 (per kernel: launches on its main path, error, kernel / plain / bound /
@@ -600,6 +645,35 @@ MOE_LAYER_REL_L2 = 1e-2
 # (mixtral-8x7b's 14,336-long sums), a bfloat16-rounded product 1.7e-3,
 # which the check must reject (H100 80GB HBM3, 700 W)
 MOE_DOWN_REL_L2 = 1e-4
+# zamba2-1.2b (phase 25): 38 Mamba-2 layers and the shared attention block
+# after layers 5, 11, 17, 23, 29 and 35, whole
+ZAMBA = {"arch": "zamba2-1.2b", "prompt": 8192, "decode_steps": 16,
+         "phase": 25}
+# prefill vs decode and kernel vs plain at full size, as ``LOGIT_TOL``:
+# atol twice the largest element excess of the plain path's own gap over
+# seeds 0-4 (``--logit-floor 0 1 2 3 4 --arch zamba2-1.2b``, on an H100
+# 80GB HBM3 at 700 W: excess 0.07836 / 0.07244 / 0.06852 / 0.07589 /
+# 0.07256, max |diff| 0.08069 / 0.08583 / 0.08055 / 0.08641 / 0.08172,
+# relative L2 0.02016 / 0.0221 / 0.02211 / 0.0224 / 0.02236), max_abs and
+# rel_l2 twice its largest max |diff| and relative L2
+ZAMBA_LOGIT_TOL = {"atol": 0.1567, "rtol": 0.05, "max_abs": 0.1728,
+                   "rel_l2": 0.0448}
+# every layer's ssm (float32) and conv (bfloat16) state and row S-1 of the
+# six shared-block calls' k and v (bfloat16), relative L2 of the worst
+# layer or call: twice the plain path's largest over the same seeds (ssm
+# 0.0312 / 0.0312 / 0.0294 / 0.03226 / 0.0273, conv 0.0185 / 0.0188 /
+# 0.0169 / 0.01881 / 0.0155, k and v 0.019 / 0.0209 / 0.0228 / 0.0221 /
+# 0.0211; the largest printed as 0.03226, 0.01881, 0.02275)
+ZAMBA_STATE_TOL = {"ssm": 0.06452, "conv": 0.03763, "sa": 0.0455}
+# the SSD on layer 0's captured input, the card against the CPU, float32
+# both (no TF32): relative L2 of y and of the final state (7.1e-7 and
+# 4.9e-7 read on the card)
+ZAMBA_SSD_REL_L2 = 1e-5
+# each planted fault must break one of check (b)'s limits by at least this
+# factor.  Random weights forget within a few tokens (dt near 0.7, A down
+# to -64), so one decode step's own decay wipes most of what a fault did
+# to the prefill's state: the pad fault read 3.0x the ssm limit
+ZAMBA_FAULT_FACTOR = 2.0
 
 
 def _median_ms(fn, reps: int = REPS, warmup: int = 3) -> float:
@@ -647,7 +721,9 @@ def _device_records(torch, fn, reps: int = REPS) -> tuple:
     fills, sets, copies), and their names.  The profiler drops a record
     now and then, so each name counts as its records a call rounded to a
     whole number, each taking that name's mean time; and it has missed a
-    whole session (no device record at all), which is traced again."""
+    whole session (no device record at all), or most of one (a name with
+    records in fewer than half the calls, which would round to none),
+    which is traced again, up to three traces in all."""
     from collections import defaultdict
 
     from torch.autograd import DeviceType
@@ -663,12 +739,15 @@ def _device_records(torch, fn, reps: int = REPS) -> tuple:
 
     fn()
     torch.cuda.synchronize()
-    # ``fn`` always puts work on the card, so a trace with no device record
-    # at all is a capture that missed the session: take it once more
-    events = trace() or trace()
-    by_name = defaultdict(list)
-    for ev in events:
-        by_name[ev.name[:60]].append(_device_us(ev))
+    # ``fn`` puts the same work on the card each call, so a trace with no
+    # device record, or a name recorded in fewer than half the calls, is a
+    # capture that missed most of the session: take it again
+    for _ in range(3):
+        by_name = defaultdict(list)
+        for ev in trace():
+            by_name[ev.name[:60]].append(_device_us(ev))
+        if by_name and all(2 * len(t) >= reps for t in by_name.values()):
+            break
     per_call = {name: round(len(times) / reps)
                 for name, times in by_name.items()}
     return (sum(statistics.fmean(by_name[n]) * k
@@ -1963,14 +2042,17 @@ def _mean_times(a: dict, b: dict) -> dict:
     return out
 
 
-def _plain_witness(fa_ref, fd_ref, params, cfg, toks, max_len, probe=None):
+def _plain_witness(fa_ref, fd_ref, params, cfg, toks, max_len, probe=None,
+                   caches=False):
     """The plain versions in the kernels' places: the last prefill logits
     of ``toks`` and those of decoding its last token after a prefill one
     token shorter (how far the model's own bfloat16 path moves prefill
     from decode without the kernels).  With ``probe`` (an MoE model's
     ``_MoeProbe``) the first prefill's expert choices are recorded, left
     in ``probe.routes``, and replayed in the shorter prefill and the
-    decode step, so that both paths route every token alike."""
+    decode step, so that both paths route every token alike.  With
+    ``caches``, also the two caches: the full prefill's, and the shorter
+    prefill's after the decode step."""
     from repro_torch.models import attention as attn_mod
     from repro_torch.models import decode_step, prefill_forward
     calls = attn_mod.attention, attn_mod.decode_attention
@@ -1978,7 +2060,9 @@ def _plain_witness(fa_ref, fd_ref, params, cfg, toks, max_len, probe=None):
     try:
         if probe:
             probe.record = True
-        last = prefill_forward(params, toks, cfg, max_len)[0]
+        last, full = prefill_forward(params, toks, cfg, max_len)
+        if not caches:
+            del full
         if probe:
             probe.record = False
             probe.replay = [r[:-1] for r in probe.routes]
@@ -1988,6 +2072,8 @@ def _plain_witness(fa_ref, fd_ref, params, cfg, toks, max_len, probe=None):
         via_decode = decode_step(params, short, toks[:, -1:], cfg)[0]
     finally:
         attn_mod.attention, attn_mod.decode_attention = calls
+    if caches:
+        return last, via_decode, full, short
     return last, via_decode
 
 
@@ -2004,29 +2090,39 @@ def _lm_inputs(torch, cfg, spec, seed, device):
 def logit_floor(torch, seeds, device, arch=GEMMA["arch"]) -> None:
     """``--logit-floor``: the plain witness of phase 10 (or, with
     ``--arch``, of phase 22 or 23, at a capacity where nothing drops and
-    with the prefill's expert choices replayed) alone — no kernel is
-    built or run — at each seed, and the element excess max(|diff| - rtol
-    |want|) that ``LOGIT_TOL``'s (or ``MOE_LOGIT_TOL``'s) atol is set
-    from (twice the largest over the seeds)."""
+    with the prefill's expert choices replayed, or of phase 25) alone — no
+    kernel is built or run — at each seed, and the element excess
+    max(|diff| - rtol |want|) that ``LOGIT_TOL``'s (or ``MOE_LOGIT_TOL``'s,
+    ``ZAMBA_LOGIT_TOL``'s) atol is set from (twice the largest over the
+    seeds); for zamba2 also the states' gaps ``ZAMBA_STATE_TOL`` is set
+    from (twice the largest)."""
     from repro_torch import configs
     from repro_torch.kernels.flash_attention.ref import (chunked_attention,
                                                          decode_ref)
     from repro_torch.models import moe as moe_mod
-    spec = {s["arch"]: s for s in (GEMMA, QWEN_MOE, MIXTRAL)}[arch]
+    spec = {s["arch"]: s for s in (GEMMA, QWEN_MOE, MIXTRAL, ZAMBA)}[arch]
     if spec is GEMMA:
         cfg, tol = configs.get(arch), LOGIT_TOL
+    elif spec is ZAMBA:
+        cfg, tol = configs.get(arch), ZAMBA_LOGIT_TOL
     else:
         cfg, tol = _no_drop(_moe_config(spec)), MOE_LOGIT_TOL[arch]
     max_len = spec["prompt"] + spec["decode_steps"]
-    excess = []
+    excess, states = [], []
     for seed in seeds:
         params, toks = _lm_inputs(torch, cfg, spec, seed, device)
         with _MoeProbe(moe_mod) as probe:
-            last, via_decode = _plain_witness(
+            out = _plain_witness(
                 chunked_attention, decode_ref, params, cfg, toks, max_len,
-                probe if cfg.is_moe else None)
+                probe if cfg.is_moe else None, caches=spec is ZAMBA)
             drops = sum(probe.take_drops())
-        del params
+        last, via_decode = out[:2]
+        if spec is ZAMBA:
+            states.append(_zamba_state_gaps(
+                torch, f"seed {seed}, plain: {toks.shape[1] - 1}-token "
+                f"prefill + one decode step vs {toks.shape[1]}-token "
+                f"prefill", out[3], out[2], toks.shape[1] - 1, None, []))
+        del params, out
         diff = (via_decode - last).abs()
         over = float((diff - tol["rtol"] * last.abs()).max())
         excess.append(over)
@@ -2042,6 +2138,12 @@ def logit_floor(torch, seeds, device, arch=GEMMA["arch"]) -> None:
     print(f"logit floor, {arch}: largest element excess {max(excess):.4g} "
           f"over seeds {list(seeds)}; twice it {2 * max(excess):.4g}",
           flush=True)
+    if states:
+        worst = {name: max(g[name] for g in states) for name in states[0]}
+        print(f"state floor, {arch}: largest worst-layer relative L2 "
+              f"{ {k: float(f'{v:.4g}') for k, v in worst.items()} }; "
+              f"twice it { {k: float(f'{2 * v:.4g}') for k, v in worst.items()} }",
+              flush=True)
 
 
 def _lm_main_path(torch, fa, params, toks, cfg, spec, tag, layers) -> dict:
@@ -2108,10 +2210,11 @@ def _lm_main_path(torch, fa, params, toks, cfg, spec, tag, layers) -> dict:
     fwd_launches = fa.attention.launches
     dec_launches = fa.decode_attention.launches
     peak = torch.cuda.max_memory_allocated()
-    if fwd_launches != cfg.n_layers or dec_launches != cfg.n_layers * steps:
+    calls = _attn_calls(cfg)
+    if fwd_launches != calls or dec_launches != calls * steps:
         raise AssertionError(f"{tag}: {fwd_launches} forward and "
                              f"{dec_launches} decode launches, want "
-                             f"{cfg.n_layers} and {cfg.n_layers * steps}")
+                             f"{calls} and {calls * steps}")
     if not (bool(torch.isfinite(last).all())
             and bool(torch.isfinite(logits).all())):
         raise AssertionError(f"{tag}: non-finite logits")
@@ -2163,18 +2266,29 @@ def _kernel_cases(torch, fa, fa_ref, fd_ref, run, tag) -> tuple:
     return fwd_t, dec_t
 
 
+def _attn_calls(cfg) -> int:
+    """The attention calls of one pass: one a layer, or for zamba2 one a
+    call of the shared block."""
+    from repro_torch.models.transformer import _shared_attn_positions
+    if cfg.layer_kind == "attn":
+        return cfg.n_layers
+    return len(_shared_attn_positions(cfg))
+
+
 def _one_decode_kernel_a_layer(events, cfg, tag) -> None:
-    """A profiled decode step ran exactly one ``decode_cluster`` a layer
-    and no other decode kernel: the decode is one launch a call."""
+    """A profiled decode step ran exactly one ``decode_cluster`` an
+    attention call and no other decode kernel: the decode is one launch a
+    call."""
+    calls = _attn_calls(cfg)
     decode_kernels = {ev.key: ev.count for ev in events
                       if "decode" in ev.key}
-    if decode_kernels != {k: cfg.n_layers for k in decode_kernels} or \
+    if decode_kernels != {k: calls for k in decode_kernels} or \
             len(decode_kernels) != 1 or \
             not any(FD_KERNELS[0] in k for k in decode_kernels):
         raise AssertionError(f"{tag}: one decode step ran the decode "
                              f"kernels {decode_kernels}, want "
-                             f"{FD_KERNELS[0]} x {cfg.n_layers}")
-    print(f"{tag}: the decode step's profile holds {cfg.n_layers} "
+                             f"{FD_KERNELS[0]} x {calls}")
+    print(f"{tag}: the decode step's profile holds {calls} "
           f"{FD_KERNELS[0]} launches and no other decode kernel",
           flush=True)
 
@@ -2570,22 +2684,28 @@ def _logit_gap(torch, tag, what, got, want, tol, failures) -> None:
                         f"rtol")
 
 
-def _state_gap(torch, what, got, want, tol, failures) -> None:
+def _state_gap(torch, what, got, want, tol, failures,
+               tag="falcon-mamba") -> dict:
     """Per-layer relative L2 of two caches' ssm and conv states; the worst
-    layer of each is held to ``tol``."""
+    layer of each is held to ``tol`` (None: only printed).  Returns the
+    worst of each."""
+    worst = {}
     for name in ("ssm", "conv"):
         g, w = got["mamba"][name].float(), want["mamba"][name].float()
         rel = [float((g[i] - w[i]).norm() / w[i].norm())
                for i in range(g.shape[0])]
         layer = int(np.argmax(rel))
-        print(f"falcon-mamba {name} states, {what}: worst layer {layer} "
-              f"relative L2 {rel[layer]:.3g} (limit {tol[name]}), median "
+        worst[name] = rel[layer]
+        limit = "printed" if tol is None else tol[name]
+        print(f"{tag} {name} states, {what}: worst layer {layer} "
+              f"relative L2 {rel[layer]:.3g} (limit {limit}), median "
               f"{statistics.median(rel):.3g}, max |diff| "
               f"{float((g - w).abs().max()):.4g} over |state| <= "
               f"{float(w.abs().max()):.4g}", flush=True)
-        if rel[layer] > tol[name]:
+        if tol is not None and rel[layer] > tol[name]:
             failures.append(f"{name} states, {what}: layer {layer} relative "
                             f"L2 {rel[layer]:.3g}")
+    return worst
 
 
 def phase_falcon_mamba(torch, sc, ref, device):
@@ -3118,7 +3238,7 @@ def _drive(program, store):
 EDGE_RANGE = "device-edge handoff"
 
 
-def _launched_in(prof, name) -> tuple[list, int, list]:
+def _launched_in(prof, name, events=None) -> tuple[list, int, list]:
     """The device records (kernels, copies, sets) that the CUDA calls the
     host made inside the ``record_function(name)`` ranges of ``prof``
     launched, matched to those calls by CUPTI correlation id; the number
@@ -3127,9 +3247,12 @@ def _launched_in(prof, name) -> tuple[list, int, list]:
     coordinator queued outside every range (a checkpoint's, a stats
     drain's) was seen to land inside one.  Only ``correlation_id`` links a record
     to its call; ``linked_correlation_id`` counts in another id space,
-    and its values collide with the calls' ids."""
+    and its values collide with the calls' ids.  ``events``: the trace's
+    events, where the caller has read them already (reading them is slow
+    on a long trace)."""
     from torch.autograd import DeviceType
-    events = prof.profiler.kineto_results.events()
+    if events is None:
+        events = prof.profiler.kineto_results.events()
     windows = [(ev.start_ns(), ev.end_ns()) for ev in events
                if ev.name() == name and ev.device_type() == DeviceType.CPU]
     calls = {ev.correlation_id() for ev in events
@@ -3930,16 +4053,19 @@ class _MoeProbe:
         return out
 
 
-def _moe_split(torch, fn, label) -> None:
-    """One call of ``fn`` under torch.profiler with each MoE part in its
-    own range, and ``unembed`` in one: the device time of the records each
-    range's CUDA calls launched (``_launched_in``), the attention kernels'
-    by name, the rest; the host wall and the busy share."""
+def _range_split(torch, fn, label, parts, kernels) -> dict:
+    """One call of ``fn`` under torch.profiler with each of ``parts`` —
+    (module, attribute, range name): the function ``module.attribute``
+    run inside ``record_function(range name)`` — in its own range: the
+    device time and records each range's CUDA calls launched
+    (``_launched_in``), then the records of ``kernels`` (names) outside
+    every range, and the rest; the host wall and the busy share.  Returns
+    {name: (ms, records)}, with the records of each of ``kernels``
+    (wherever they were launched) that a CUDA call of the host queued —
+    matched by CUPTI correlation id, as ``_launched_in`` matches them —
+    under ``("launches", name)``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
-
-    from repro_torch.models import moe as moe_mod
-    from repro_torch.models import transformer as tf_mod
 
     def ranged(f, name):
         def call(*a, **k):
@@ -3947,11 +4073,9 @@ def _moe_split(torch, fn, label) -> None:
                 return f(*a, **k)
         return call
 
-    saved = {n: getattr(moe_mod, n) for n in MOE_PARTS}
-    unembed = tf_mod.unembed
-    for n, part in MOE_PARTS.items():
-        setattr(moe_mod, n, ranged(saved[n], f"moe {part}"))
-    tf_mod.unembed = ranged(unembed, "unembed")
+    saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in parts]
+    for (mod, attr, name), (_, _, f) in zip(parts, saved):
+        setattr(mod, attr, ranged(f, name))
     try:
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -3961,21 +4085,21 @@ def _moe_split(torch, fn, label) -> None:
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
     finally:
-        for n, f in saved.items():
-            setattr(moe_mod, n, f)
-        tf_mod.unembed = unembed
-    ranges = [f"moe {p}" for p in MOE_PARTS.values()] + ["unembed"]
+        for mod, attr, f in saved:
+            setattr(mod, attr, f)
+    ranges = list(dict.fromkeys(name for _, _, name in parts))
     split, seen = {}, set()
+    events = prof.profiler.kineto_results.events()
     on_device = []
     for name in ranges:
-        inside, _, on_device = _launched_in(prof, name)
+        inside, _, on_device = _launched_in(prof, name, events)
         split[name] = (sum(ev.end_ns() - ev.start_ns() for ev in inside)
                        / 1e6, len(inside))
         seen.update(id(ev) for ev in inside)
     on_device = [ev for ev in on_device if ev.name() not in ranges
                  and ev.device_type() == DeviceType.CUDA]
     attn = [ev for ev in on_device if id(ev) not in seen and any(
-        k in ev.name() for k in ("fwd_wgmma", "fwd_rows", "decode_cluster"))]
+        k in ev.name() for k in kernels)]
     split["attention kernels"] = (
         sum(ev.end_ns() - ev.start_ns() for ev in attn) / 1e6, len(attn))
     total = sum(ev.end_ns() - ev.start_ns() for ev in on_device) / 1e6
@@ -3986,6 +4110,26 @@ def _moe_split(torch, fn, label) -> None:
           f"{len(on_device)} device records; split: " + "; ".join(
               f"{name} {ms:.3f} ms ({n})" for name, (ms, n) in split.items()),
           flush=True)
+    launched = {ev.correlation_id() for ev in events
+                if ev.device_type() == DeviceType.CPU
+                and ev.name().startswith("cu")}
+    launched.discard(0)
+    for k in kernels:
+        split[("launches", k)] = sum(k in ev.name() and ev.correlation_id()
+                                     in launched for ev in on_device)
+    return split
+
+
+def _moe_split(torch, fn, label) -> None:
+    """One call of ``fn`` under torch.profiler with each MoE part in its
+    own range, and ``unembed`` in one (``_range_split``): the device time
+    of the records each range's CUDA calls launched, the attention
+    kernels' by name, the rest; the host wall and the busy share."""
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import transformer as tf_mod
+    parts = [(moe_mod, n, f"moe {part}") for n, part in MOE_PARTS.items()]
+    _range_split(torch, fn, label, parts + [(tf_mod, "unembed", "unembed")],
+                 ("fwd_wgmma", "fwd_rows", "decode_cluster"))
 
 
 def _down_product_check(torch, moe_mod, cfg, lp, xb, label) -> None:
@@ -4235,11 +4379,11 @@ def phase_moe_serving(torch, fa, params, cfg, device) -> None:
 #: the gradient checks at one layer, on a short sequence (``grad_seq``)
 #: against the CPU and at the main path's shape on the card; the restart
 #: at one layer (``restart_*``); the NCCL world of one at the reduced width
-TRAIN = {"arch": "gemma2-9b", "phase": 24, "layers": 8, "batch": 1,
+TRAIN = {"arch": "gemma2-9b", "phase": 24, "layers": 4, "batch": 1,
          "seq": 4096, "steps": 6, "mb_steps": 2, "microbatches": 2,
          "peak_lr": 1e-4, "warmup": 2, "corpus_words": 200_000,
-         "grad_seq": 256, "wq_boost": 8.0, "restart_steps": 5,
-         "preempt_at": 3, "ckpt_every": 2}
+         "grad_seq": 256, "wq_boost": 8.0, "restart_steps": 4,
+         "preempt_at": 2, "ckpt_every": 5}
 #: the gradient checks' limit: the loss's relative gap and each leaf's
 #: relative L2 error may be at most this many times that quantity's own
 #: floor (the plain version's gap to the same reference)
@@ -4678,6 +4822,353 @@ def phase_train(torch, fa, fa_ref, device) -> None:
         raise AssertionError(f"{cfg.name} train: " + "; ".join(failures))
 
 
+# ---------------------------------------------------------------------------
+# phase 25: zamba2-1.2b
+# ---------------------------------------------------------------------------
+
+def _zamba_parts(mamba_mod, attn_mod, tf_mod) -> list:
+    """The profile split's ranges (``_range_split``): the Mamba-2
+    mixer's parts, the shared block's GEMMs (its q, k, v and output
+    projections and its MLP) and ``unembed``; the attention kernels are
+    counted by name."""
+    return [(mamba_mod, "linear", "in/out projections"),
+            (mamba_mod, "_mamba2_inputs", "conv + SiLU + softplus"),
+            (mamba_mod, "_ssd_intra", "SSD intra-chunk"),
+            (mamba_mod, "_ssd_chunk_states", "SSD chunk states"),
+            (mamba_mod, "_ssd_recurrence", "SSD recurrence"),
+            (mamba_mod, "_ssd_off_diag", "SSD off-diagonal"),
+            (mamba_mod, "_gated_norm", "gated norm"),
+            (attn_mod, "linear", "shared block GEMMs"),
+            (tf_mod, "glu_mlp", "shared block GEMMs"),
+            (tf_mod, "unembed", "unembed")]
+
+
+def _clone_cache(cache: dict) -> dict:
+    return {k: ({n: t.clone() for n, t in v.items()} if isinstance(v, dict)
+                else v.clone()) for k, v in cache.items()}
+
+
+def _zamba_state_gaps(torch, what, got, want, row, tol, failures) -> dict:
+    """Every layer's ssm and conv state (``_state_gap``) and row ``row``
+    of every shared-block call's k and v of two zamba2 caches, the worst
+    layer or call held to ``tol`` (None: only printed).  Returns the
+    worst of each (ssm, conv, sa)."""
+    worst = _state_gap(torch, what, got, want, tol, failures, tag="zamba2")
+    rel = []
+    for name in ("sa_k", "sa_v"):
+        g = got[name][:, :, :, row].float()
+        w = want[name][:, :, :, row].float()
+        rel += [float((g[i] - w[i]).norm() / w[i].norm())
+                for i in range(g.shape[0])]
+    call = int(np.argmax(rel))
+    worst["sa"] = rel[call]
+    limit = "printed" if tol is None else tol["sa"]
+    print(f"zamba2 shared-block k and v at row {row}, {what}: worst "
+          f"{'sa_k' if call < len(rel) // 2 else 'sa_v'} call "
+          f"{call % (len(rel) // 2)} relative L2 {rel[call]:.3g} (limit "
+          f"{limit}), median {statistics.median(rel):.3g}", flush=True)
+    if tol is not None and rel[call] > tol["sa"]:
+        failures.append(f"shared-block k and v, {what}: relative L2 "
+                        f"{rel[call]:.3g}")
+    return worst
+
+
+def _sequential_recurrence(torch, states, log_decay):
+    """The recurrence between chunks as the reference's ``lax.scan``
+    runs it, one chunk a step: s_z = exp(a_{z-1}) s_{z-1} + S_{z-1} from
+    s_0 = 0.  Returns (the state entering each chunk, the final state)."""
+    s = torch.zeros_like(states[:, 0])
+    entering = []
+    for z in range(states.shape[1]):
+        entering.append(s)
+        s = torch.exp(log_decay[:, z])[..., None, None] * s + states[:, z]
+    return torch.stack(entering, dim=1), s
+
+
+def _zamba_ssd_check(torch, mamba_mod, args, failures) -> None:
+    """Check (d): ``_ssd_chunked`` on layer 0's captured input, the card
+    against the CPU in float32, and the card's time; and on the card its
+    closed-form recurrence between chunks against the reference's
+    sequential one, on the same input's chunk states."""
+    *tensors, chunk = args
+    x, dt, a, bm, _ = tensors
+    b, slen, h, p = x.shape
+    shape = (b, slen // chunk, chunk)
+    dA_cum = torch.cumsum(dt.reshape(*shape, h) * a, dim=2)
+    states = mamba_mod._ssd_chunk_states(x.reshape(*shape, h, p),
+                                         dt.reshape(*shape, h), dA_cum,
+                                         bm.reshape(*shape, -1))
+    # random weights' chunks decay by exp(-45) or less, so the carried
+    # state underflows to 0; the log decays scaled by 1e-3 carry it
+    # through all the chunks
+    for scale in (1.0, 1e-3):
+        decay = dA_cum[:, :, -1] * scale
+        closed = mamba_mod._ssd_recurrence(states, decay)
+        scan = _sequential_recurrence(torch, states, decay)
+        rec = [float((c - w).norm() / w.norm().clamp(min=1e-30))
+               for c, w in zip(closed, scan)]
+        print(f"zamba2 layer 0 SSD recurrence over {shape[1]} chunks on "
+              f"the card, log decays x {scale:g} (chunk decay "
+              f"{float(torch.exp(decay).min()):.3g}-"
+              f"{float(torch.exp(decay).max()):.3g}), closed form vs the "
+              f"reference's sequential scan: relative L2 of the entering "
+              f"states {rec[0]:.3g}, of the final state {rec[1]:.3g} (limit "
+              f"{ZAMBA_SSD_REL_L2})", flush=True)
+        if not max(rec) <= ZAMBA_SSD_REL_L2:
+            failures.append(f"the SSD recurrence vs the sequential scan, "
+                            f"log decays x {scale:g}: relative L2 {rec}")
+    del states, closed, scan
+    y, s = mamba_mod._ssd_chunked(*tensors, chunk)
+    t0 = time.perf_counter()
+    want_y, want_s = mamba_mod._ssd_chunked(*(t.cpu() for t in tensors),
+                                            chunk)
+    cpu_s = time.perf_counter() - t0
+    ms = _median_ms(lambda: mamba_mod._ssd_chunked(*tensors, chunk), reps=5)
+    gaps = [float((g.cpu() - w).norm() / w.norm())
+            for g, w in ((y, want_y), (s, want_s))]
+    print(f"zamba2 layer 0 SSD on its captured input x{tuple(x.shape)} "
+          f"{x.dtype}, chunk {chunk}: card vs CPU relative L2 y {gaps[0]:.3g}"
+          f", final state {gaps[1]:.3g} (limit {ZAMBA_SSD_REL_L2}); the "
+          f"card's _ssd_chunked {ms:.3f} ms (CUDA events, median of 5), the "
+          f"CPU's {cpu_s:.2f} s", flush=True)
+    if not max(gaps) <= ZAMBA_SSD_REL_L2 or \
+            not bool(torch.isfinite(y).all()):
+        failures.append(f"the SSD on the card vs the CPU: relative L2 "
+                        f"{gaps}")
+
+
+def _fault_ratio(torch, what, logits, cache, last, full, row,
+                 failures) -> None:
+    """Check (b) on a planted fault's decode logits and cache, against
+    the kernel prefill's (``last``, ``full``): the largest of its gaps
+    over its limit (logits max |diff| and relative L2, the worst layer's
+    ssm and conv state, the worst call's k and v at ``row``) must reach
+    ``ZAMBA_FAULT_FACTOR``."""
+    gaps = _zamba_state_gaps(torch, f"planted fault {what}", cache, full,
+                             row, None, [])
+    diff = (logits - last).abs()
+    ratios = {"logits max |diff|": float(diff.max()) /
+              ZAMBA_LOGIT_TOL["max_abs"],
+              "logits relative L2": float(diff.norm() / last.norm()) /
+              ZAMBA_LOGIT_TOL["rel_l2"]}
+    names = {"ssm": "ssm state", "conv": "conv state",
+             "sa": "shared-block k and v"}
+    ratios.update({names[name]: gap / ZAMBA_STATE_TOL[name]
+                   for name, gap in gaps.items()})
+    worst = max(ratios, key=ratios.get)
+    print(f"zamba2 planted fault {what}: logits max |diff| "
+          f"{float(diff.max()):.4g}, relative L2 "
+          f"{float(diff.norm() / last.norm()):.3g}; gap over limit "
+          f"{ {k: float(f'{v:.3g}') for k, v in ratios.items()} }: the "
+          f"largest, {worst}, {ratios[worst]:.3g}x (must be >= "
+          f"{ZAMBA_FAULT_FACTOR:g}x)", flush=True)
+    if ratios[worst] < ZAMBA_FAULT_FACTOR:
+        failures.append(f"planted fault {what} not rejected: "
+                        f"{ratios[worst]:.3g}x its limit")
+
+
+def _zamba_faults(torch, params, cfg, toks, max_len, last, full, short,
+                  failures) -> None:
+    """Check (c): two planted faults on the kernel path, each held to
+    check (b) against the kernel prefill's last logits and cache, each
+    required to break a limit by ``ZAMBA_FAULT_FACTOR``.  (1) The last chunk padded before the
+    softplus: the pad's dt is softplus(dt_bias), so the state decays
+    through the pad (the prompt of S - 1 tokens pads one step).  (2) The
+    decode walk without its last call of the shared block."""
+    import torch.nn.functional as F
+
+    from repro_torch.models import decode_step, prefill_forward
+    from repro_torch.models import mamba as mamba_mod
+    from repro_torch.models import transformer as tf_mod
+
+    n = toks.shape[1]
+    forward, ssd, walk = (tf_mod.mamba2_forward, mamba_mod._ssd_chunked,
+                          tf_mod._layer_walk)
+
+    def padded_before(p, x, c, chunk=64, return_state=False):
+        def fault_ssd(xs, dt_p, a, b_p, c_p, chunk_):
+            dt_p = dt_p.clone()
+            dt_p[:, x.shape[1]:] = F.softplus(p["dt_bias"])
+            return ssd(xs, dt_p, a, b_p, c_p, chunk_)
+        mamba_mod._ssd_chunked = fault_ssd
+        try:
+            return forward(p, x, c, chunk, return_state)
+        finally:
+            mamba_mod._ssd_chunked = ssd
+
+    tf_mod.mamba2_forward = padded_before
+    try:
+        _, bad = prefill_forward(params, toks[:, :-1], cfg, max_len)
+        got = decode_step(params, bad, toks[:, -1:], cfg)[0]
+    finally:
+        tf_mod.mamba2_forward = forward
+    _fault_ratio(torch, f"(1), the {n - 1}-token prompt padded before the "
+                 f"softplus", got, bad, last, full, n - 1, failures)
+    del bad
+
+    def without_last_call(c):
+        out = walk(c)
+        i = max(i for i, (_, si) in enumerate(out) if si is not None)
+        out[i] = (out[i][0], None)
+        return out
+
+    bad = _clone_cache(short)
+    tf_mod._layer_walk = without_last_call
+    try:
+        got = decode_step(params, bad, toks[:, -1:], cfg)[0]
+    finally:
+        tf_mod._layer_walk = walk
+    _fault_ratio(torch, "(2), the decode step without the last call of the "
+                 "shared block", got, bad, last, full, n - 1, failures)
+
+
+def phase_zamba(torch, fa, fa_ref, fd_ref, device):
+    """Phase 25: zamba2-1.2b whole — the main path's launches and times,
+    the attention kernels on the first shared call's captured inputs,
+    the SSD on layer 0's captured input against the CPU, prefill-vs-decode
+    and kernel-vs-plain logits and states, two planted faults, and a
+    profile split of a decode step and a prefill.  Every check prints
+    before any failure is raised.  Returns (params, cfg)."""
+    from repro_torch import configs
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import decode_step, prefill_forward
+    from repro_torch.models import mamba as mamba_mod
+    from repro_torch.models import transformer as tf_mod
+
+    cfg = configs.get(ZAMBA["arch"])
+    tag = cfg.name
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, toks = _lm_inputs(torch, cfg, ZAMBA, SEED, device)
+    torch.cuda.synchronize()
+    positions = tf_mod._shared_attn_positions(cfg)
+    print(f"{tag}: whole ({cfg.n_layers} Mamba-2 layers, d_model "
+          f"{cfg.d_model}, d_inner {cfg.d_inner_}, "
+          f"{cfg.d_inner_ // cfg.mamba_head_dim} SSD heads of "
+          f"{cfg.mamba_head_dim}, ssm_state {cfg.ssm_state}, conv "
+          f"{cfg.conv_kernel}; the shared block ({cfg.n_heads} heads of "
+          f"{cfg.head_dim_}, d_ff {cfg.d_ff} {cfg.activation} GLU) after "
+          f"layers {positions}; vocab {cfg.vocab}; {cfg.n_params()} "
+          f"parameters in {cfg.param_dtype}) with random weights from seed "
+          f"{SEED} in {time.perf_counter() - t0:.1f} s", flush=True)
+    n, steps = ZAMBA["prompt"], ZAMBA["decode_steps"]
+    max_len = n + steps
+
+    # the main path, the first shared call's attention inputs captured,
+    # and layer 0's SSD input
+    ssd, captured = mamba_mod._ssd_chunked, []
+
+    def ssd_capture(*args):
+        if not captured:
+            captured.append(args)
+        return ssd(*args)
+
+    mamba_mod._ssd_chunked = ssd_capture
+    try:
+        run = _lm_main_path(torch, fa, params, toks, cfg, ZAMBA, tag, 1)
+    finally:
+        mamba_mod._ssd_chunked = ssd
+    failures = []
+    _zamba_ssd_check(torch, mamba_mod, captured.pop(), failures)
+    fwd_t, dec_t = _kernel_cases(torch, fa, fa_ref, fd_ref, run, tag)
+    torch.cuda.empty_cache()
+
+    # prefill-then-decode: the warm prefill of n - 1 tokens timed, the
+    # decode step on a copy of its cache profiled
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, short = prefill_forward(params, toks[:, :-1], cfg, max_len)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    print(f"{tag}: warm prefill of {n - 1} tokens in {warm_s:.4f} s = "
+          f"{(n - 1) / warm_s:.0f} tokens/s", flush=True)
+    out, stepped = {}, _clone_cache(short)
+    events = _profile_step(torch, lambda: out.update(
+        logits=decode_step(params, stepped, toks[:, -1:], cfg)[0]),
+        f"{tag}: one decode step (B=1, cache {n - 1})")
+    _one_decode_kernel_a_layer(events, cfg, tag)
+    via_decode = out["logits"]
+    last, full = prefill_forward(params, toks, cfg, max_len)
+
+    # the second witness: the plain versions in the kernels' places
+    calls = attn_mod.attention, attn_mod.decode_attention
+    attn_mod.attention, attn_mod.decode_attention = fa_ref, fd_ref
+    try:
+        plain_dec = decode_step(params, _clone_cache(short), toks[:, -1:],
+                                cfg)[0]
+    finally:
+        attn_mod.attention, attn_mod.decode_attention = calls
+    plain_last, plain_via, plain_full, plain_short = _plain_witness(
+        fa_ref, fd_ref, params, cfg, toks, max_len, caches=True)
+    _witness_gaps(torch, tag, n, ZAMBA_LOGIT_TOL, via_decode, last,
+                  plain_via, plain_last, plain_dec, failures)
+    for what, got, want in (
+            (f"kernels: {n - 1}-token prefill + one decode step vs {n}-token"
+             f" prefill", stepped, full),
+            ("plain versions: the same", plain_short, plain_full),
+            (f"{n}-token prefill, kernel vs plain", full, plain_full)):
+        _zamba_state_gaps(torch, what, got, want, n - 1, ZAMBA_STATE_TOL,
+                          failures)
+    del plain_full, plain_short, stepped
+    _zamba_faults(torch, params, cfg, toks, max_len, last, full, short,
+                  failures)
+    del full
+    torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError(f"{tag}: " + "; ".join(failures))
+
+    # where the time goes: a decode step and a prefill, split by part,
+    # the attention kernels' device records counted by name
+    parts = _zamba_parts(mamba_mod, attn_mod, tf_mod)
+    kernels = ("fwd_wgmma", "decode_cluster")
+    stepped = _clone_cache(short)
+    del short
+    split = _range_split(torch, lambda: decode_step(
+        params, stepped, toks[:, -1:], cfg), f"{tag}: one decode step (B=1, "
+        f"cache {n - 1})", parts, kernels)
+    dec_records = split[("launches", "decode_cluster")]
+    del stepped
+    split = _range_split(torch, lambda: prefill_forward(
+        params, toks[:, :-1], cfg, max_len), f"{tag}: one prefill of "
+        f"{n - 1} tokens", parts, kernels)
+    fwd_records = split[("launches", "fwd_wgmma")]
+    calls_n = _attn_calls(cfg)
+    print(f"{tag}: device records by name in the profiled runs: "
+          f"{fwd_records} fwd_wgmma a prefill, {dec_records} decode_cluster "
+          f"a decode step (want {calls_n} each); peak device memory over "
+          f"the phase {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
+          flush=True)
+    if fwd_records != calls_n or dec_records != calls_n:
+        raise AssertionError(f"{tag}: {fwd_records} fwd_wgmma records a "
+                             f"prefill, {dec_records} decode_cluster a step, "
+                             f"want {calls_n}")
+    _profile_step(torch, lambda: prefill_forward(params, toks[:, :-1], cfg,
+                                                 max_len),
+                  f"{tag}: the same prefill")
+    return params, cfg
+
+
+def phase_zamba_serving(torch, fa, params, cfg, device) -> None:
+    """Phase 25's serving: BatchedServer on zamba2-1.2b."""
+    fa.attention.launches = 0
+    fa.decode_attention.launches = 0
+    server, run = _serve_requests(torch, params, cfg, device, SEED + 25)
+    fwd, dec = fa.attention.launches, fa.decode_attention.launches
+    decode_steps = run["batched"] + run["admit_steps"]
+    calls = _attn_calls(cfg)
+    if dec != calls * decode_steps or fwd != 0:
+        raise AssertionError(f"{cfg.name} serving: {dec} decode launches "
+                             f"for {decode_steps} decode steps, {fwd} "
+                             f"forward launches for no prefill")
+    _profile_step(torch, lambda: server._admit_step(1, 0),
+                  f"{cfg.name} serving: one admission step "
+                  f"(B={SERVE['slots']})")
+    print(f"{cfg.name} serving: {_serve_text(cfg, run)}; {dec} flash decode "
+          f"launches (= {calls} x {decode_steps}), {fwd} flash forward "
+          f"launches", flush=True)
+
+
 def main(argv=None) -> int:
     global SEED
     parser = argparse.ArgumentParser(description="Build, check and drive "
@@ -4692,9 +5183,9 @@ def main(argv=None) -> int:
                              "kernels) at these seeds, and exit")
     parser.add_argument("--arch", default=GEMMA["arch"],
                         choices=[GEMMA["arch"], QWEN_MOE["arch"],
-                                 MIXTRAL["arch"]],
+                                 MIXTRAL["arch"], ZAMBA["arch"]],
                         help="the model of --logit-floor: phase 10's "
-                             "(default), 22's or 23's")
+                             "(default), 22's, 23's or 25's")
     args = parser.parse_args(argv)
     SEED = args.seed
     import torch
@@ -4823,6 +5314,14 @@ def main(argv=None) -> int:
     phase_train(torch, fa, chunked_attention, device)
     torch.cuda.empty_cache()
     mark("24")
+
+    params, cfg = phase_zamba(torch, fa, chunked_attention, decode_ref,
+                              device)
+    torch.cuda.empty_cache()
+    phase_zamba_serving(torch, fa, params, cfg, device)
+    del params
+    torch.cuda.empty_cache()
+    mark("25")
 
     kernel = {"name": "fused_fold", "route": "cuda",
               "source": "src/repro_torch/kernels/fused_fold/csrc/"

@@ -3,7 +3,8 @@
 Each ported module defines ``CONFIG`` (the published configuration, copied
 from the reference) and ``reduced()`` (a tiny same-family variant for the
 CPU tests).  The port serves the token-input attention architectures,
-dense and mixture-of-experts, and falcon-mamba-7b (Mamba-1); the other
+dense and mixture-of-experts, falcon-mamba-7b (Mamba-1) and the hybrid
+zamba2-1.2b (Mamba-2 layers and a shared attention block); the other
 names stay in ``ARCHS``, and ``get`` / ``get_reduced`` on them raise ``NotImplementedError`` naming the
 ``ROADMAP.md`` item that ports them.
 """
@@ -29,8 +30,6 @@ ARCHS = [
 
 #: architectures not ported yet → the ROADMAP item that ports them
 NOT_PORTED = {
-    "zamba2-1.2b": "Queue A #13d (mamba2 layers and the shared attention "
-                   "block)",
     "internvl2-2b": "Queue A #13e (embedding-input frontends)",
     "musicgen-medium": "Queue A #13e (embedding-input frontends)",
 }

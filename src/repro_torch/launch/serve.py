@@ -57,43 +57,55 @@ def _merge_slot(new: torch.Tensor, old: torch.Tensor,
     return out
 
 
-def _written_cells(cache: dict):
-    """Where the next decode step writes k and v (``cache_write_pos``) and
-    what those cells hold now."""
-    k = cache["k"]
+#: a cache's (k, v) pairs: the attention layers' and zamba2's shared
+#: block's (one cache a call of the block)
+_KV = (("k", "v"), ("sa_k", "sa_v"))
+
+
+def _written_cells(cache: dict, k_name: str = "k", v_name: str = "v"):
+    """Where the next decode step writes ``cache[k_name]`` and
+    ``cache[v_name]`` (``cache_write_pos``) and what those cells hold
+    now."""
+    k = cache[k_name]
     pos = cache_write_pos(cache["lengths"], k.shape[3])
     idx = pos.view(1, -1, 1, 1, 1).expand(k.shape[0], k.shape[1],
                                           k.shape[2], 1, k.shape[4])
-    return idx, k.gather(3, idx), cache["v"].gather(3, idx)
+    return idx, k.gather(3, idx), cache[v_name].gather(3, idx)
 
 
-def _saved_lanes(cache: dict):
-    """What the next decode step overwrites, as it holds now: the k and v
-    cells at each row's write position (``_written_cells``), or for a
-    mamba cache the whole conv and SSM states (a few MB a layer)."""
+def _saved_lanes(cache: dict) -> dict:
+    """What the next decode step overwrites, as it holds now: the cells
+    of every k and v cache at each row's write position
+    (``_written_cells``), and of a Mamba cache the whole conv and SSM
+    states (a few MB a layer) — for zamba2 both kinds."""
+    saved = {k_name: _written_cells(cache, k_name, v_name)
+             for k_name, v_name in _KV if k_name in cache}
     if "mamba" in cache:
-        return {name: t.clone() for name, t in cache["mamba"].items()}
-    return _written_cells(cache)
+        saved["mamba"] = {name: t.clone()
+                          for name, t in cache["mamba"].items()}
+    return saved
 
 
-def _restore_lanes(cache: dict, saved, slot: int) -> None:
+def _restore_lanes(cache: dict, saved: dict, slot: int) -> None:
     """Put the saved values back on every lane but ``slot``: with
     ``_merge_slot`` on the lengths, this keeps only the admitted slot's
     lanes of a full-batch step, as the reference's merge of whole caches
     does — for k and v without copying the caches."""
-    if "mamba" in cache:
-        for name, old in saved.items():
-            cur = cache["mamba"][name]
-            others = torch.arange(cur.shape[1], device=cur.device) != slot
-            cur[:, others] = old[:, others]
-        return
-    idx, k_old, v_old = saved
-    others = torch.ones(idx.shape[1], dtype=torch.bool, device=idx.device)
-    others[slot] = False
-    others = others.view(1, -1, 1, 1, 1)
-    for name, old in (("k", k_old), ("v", v_old)):
-        cur = cache[name].gather(3, idx)
-        cache[name].scatter_(3, idx, torch.where(others, old, cur))
+    for name, old in saved.get("mamba", {}).items():
+        cur = cache["mamba"][name]
+        others = torch.arange(cur.shape[1], device=cur.device) != slot
+        cur[:, others] = old[:, others]
+    for k_name, v_name in _KV:
+        if k_name not in saved:
+            continue
+        idx, k_old, v_old = saved[k_name]
+        others = torch.ones(idx.shape[1], dtype=torch.bool,
+                            device=idx.device)
+        others[slot] = False
+        others = others.view(1, -1, 1, 1, 1)
+        for name, old in ((k_name, k_old), (v_name, v_old)):
+            cur = cache[name].gather(3, idx)
+            cache[name].scatter_(3, idx, torch.where(others, old, cur))
 
 
 class BatchedServer:
@@ -103,7 +115,7 @@ class BatchedServer:
 
     Admission keeps the reference's semantics: the prompt runs through
     full-batch decode steps (every slot's lanes compute), and only the
-    admitted slot's lanes are kept.  A slot's length — and for a Mamba-1
+    admitted slot's lanes are kept.  A slot's length — and for a Mamba
     model its conv and SSM state — carries over from the request it held
     before, and idle slots advance on token 0 in ``step``, as in the
     reference."""

@@ -1,19 +1,30 @@
-"""Mamba-1 blocks (falcon-mamba).
+"""Mamba blocks: Mamba-1 (falcon-mamba) and Mamba-2 / SSD (zamba2).
 
-The partner of the Mamba-1 half of ``repro/models/mamba.py``:
-``mamba1_init``, ``_causal_conv``, ``mamba1_forward``,
-``mamba1_init_cache`` and ``mamba1_decode``, with the reference's
-numerics — projections in ``compute_dtype``; the softplus'd step, ``A``
-and the scan in float32; ``dt_bias``, ``A_log`` and ``D`` kept in float32
-whatever ``param_dtype`` is.
+The partner of ``repro/models/mamba.py``: ``mamba1_init``,
+``_causal_conv``, ``mamba1_forward``, ``mamba1_init_cache`` and
+``mamba1_decode``; ``mamba2_init``, ``_ssd_chunked``, ``mamba2_forward``,
+``mamba2_init_cache`` and ``mamba2_decode``, with the reference's
+numerics — projections in ``compute_dtype``; the softplus'd step, ``A``,
+the scan and the SSD in float32; ``dt_bias``, ``A_log`` and ``D`` kept in
+float32 whatever ``param_dtype`` is (shape ``(di,)`` for Mamba-1, one a
+head, ``(nh,)``, for Mamba-2).
 
-The reference's model calls its scan with ``use_pallas=False``, so it runs
-the ``lax.scan`` oracle and never its Pallas kernel.  The port calls the
-scan wrapper of ``kernels/mamba_scan/ops.py`` directly: the CUDA kernel
-for tensors on the card, the plain version for CPU tensors.  Decode is the
-reference's one-token recurrence (``ops.decode_step``), plain tensor
-operations on either device.  The Mamba-2 (SSD) half is not ported
-(``ROADMAP.md`` Queue A #13d).
+The reference's model calls its Mamba-1 scan with ``use_pallas=False``,
+so it runs the ``lax.scan`` oracle and never its Pallas kernel.  The port
+calls the scan wrapper of ``kernels/mamba_scan/ops.py`` directly: the
+CUDA kernel for tensors on the card, the plain version for CPU tensors.
+Decode is the reference's one-token recurrence (``ops.decode_step``),
+plain tensor operations on either device.
+
+Mamba-2 computes its scan in the chunked SSD form (Mamba-2, arXiv
+2405.21060, section 6) outside any kernel in the reference (``jnp.einsum``
+and ``lax.scan``), so the port computes it with PyTorch tensor operations
+in float32 on either device: each of the reference's three- and
+four-operand einsums is written as explicit products and batched
+matmuls (``_ssd_intra``, ``_ssd_chunk_states``, ``_ssd_off_diag``), and
+the recurrence between chunks is one product with an (nc+1) x (nc+1)
+decay matrix (``_ssd_recurrence``) where the reference scans the chunks
+one by one.
 """
 
 from __future__ import annotations
@@ -25,7 +36,7 @@ import torch.nn.functional as F
 
 from ..kernels.mamba_scan import ops as scan_ops
 from .config import ModelConfig
-from .layers import Params, dense_init, linear
+from .layers import Params, dense_init, linear, rmsnorm
 
 
 def _dt_rank(cfg: ModelConfig) -> int:
@@ -141,5 +152,231 @@ def mamba1_decode(p: Params, x: torch.Tensor, cache: dict,
     return linear(p["out_proj"], y, cd), {"conv": conv_state, "ssm": h}
 
 
+# ---------------------------------------------------------------------------
+# Mamba-2 / SSD (zamba2)
+# ---------------------------------------------------------------------------
+
+def _mamba2_heads(cfg: ModelConfig) -> int:
+    return cfg.d_inner_ // cfg.mamba_head_dim
+
+
+def mamba2_init(gen: torch.Generator, cfg: ModelConfig) -> Params:
+    """One Mamba-2 mixer's parameters: ``in_proj`` emitting [x (di), z
+    (di), B (n), C (n), dt (nh)], the depthwise conv over [x, B, C], A (as
+    ``A_log``, A = -(1..nh)), the skip D and ``dt_bias`` a head (float32),
+    the gated norm's weight and ``out_proj``."""
+    d, di, n = cfg.d_model, cfg.d_inner_, cfg.ssm_state
+    nh = _mamba2_heads(cfg)
+    dt_ = cfg.param_dtype_
+    dev = gen.device
+    in_proj = dense_init(gen, d, 2 * di + 2 * n + nh, dt_)
+    conv_w = torch.randn((cfg.conv_kernel, di + 2 * n), generator=gen,
+                         device=dev, dtype=torch.float32)
+    conv_w = conv_w.mul_((cfg.conv_kernel * di) ** -0.5).to(dt_)
+    return {
+        "in_proj": in_proj,
+        "conv_w": conv_w,
+        "conv_b": torch.zeros((di + 2 * n,), dtype=dt_, device=dev),
+        "A_log": torch.log(torch.arange(1, nh + 1, dtype=torch.float32,
+                                        device=dev)),
+        "D": torch.ones((nh,), dtype=torch.float32, device=dev),
+        "dt_bias": torch.zeros((nh,), dtype=torch.float32, device=dev),
+        "norm": torch.ones((di,), dtype=dt_, device=dev),
+        "out_proj": dense_init(gen, di, d, dt_, scale=di ** -0.5),
+    }
+
+
+def _ssd_intra(x, dt, dA_cum, B, C):
+    """The diagonal blocks: each chunk's outputs from its own inputs.
+
+    x (b, nc, c, h, p), dt and dA_cum (b, nc, c, h), B and C (b, nc, c, n)
+    → y_diag (b, nc, c, h, p): y[i] = Σ_{j <= i} (C_i·B_j)
+    exp(dA_cum[i] - dA_cum[j]) dt_j x_j — the reference's
+    ``"bzij,bzijh,bzjh,bzjhp->bzihp"``.  The segment sums above the
+    diagonal (j > i) are positive and grow with |A| Σ dt (past ~88 their
+    exp overflows float32 to inf, which the reference forms and then
+    masks): they are set to -inf before the exp, so the masked entries
+    are exactly 0 and no inf is formed; the others are unchanged."""
+    c = x.shape[2]
+    seg = dA_cum[:, :, :, None, :] - dA_cum[:, :, None, :, :]  # (b,nc,i,j,h)
+    above = torch.ones((c, c), dtype=torch.bool,
+                       device=x.device).triu(1)[:, :, None]
+    decay = torch.exp(seg.masked_fill_(above, float("-inf")))
+    scores = C @ B.transpose(-1, -2)                         # (b, nc, i, j)
+    # (b, nc, h, i, j) weights, then over j: (b,nc,h,i,j) @ (b,nc,h,j,p)
+    w = (decay * scores[..., None] * dt[:, :, None, :, :]).permute(
+        0, 1, 4, 2, 3)
+    return (w @ x.permute(0, 1, 3, 2, 4)).permute(0, 1, 3, 2, 4)
+
+
+def _ssd_chunk_states(x, dt, dA_cum, B):
+    """Each chunk's final state from its own inputs, the state entering
+    it taken as zero: S_z = Σ_j exp(dA_cum[last] - dA_cum[j]) dt_j B_j ⊗
+    x_j — the reference's ``"bzjh,bzjh,bzjn,bzjhp->bzhnp"``.  x (b, nc,
+    c, h, p), dt and dA_cum (b, nc, c, h), B (b, nc, c, n) → (b, nc, h,
+    n, p)."""
+    b, nc, c, h, p = x.shape
+    w = torch.exp(dA_cum[:, :, -1:, :] - dA_cum) * dt        # (b, nc, c, h)
+    xw = (x * w[..., None]).reshape(b, nc, c, h * p)
+    s = B.transpose(-1, -2) @ xw                           # (b, nc, n, h*p)
+    return s.reshape(b, nc, -1, h, p).permute(0, 1, 3, 2, 4)
+
+
+def _ssd_recurrence(states, chunk_log_decay):
+    """The recurrence between chunks, s_z = exp(a_{z-1}) s_{z-1} +
+    S_{z-1} from s_0 = 0 (the reference's ``lax.scan``), in closed form:
+    s_z = Σ_{y < z} exp(a_{y+1} + ... + a_{z-1}) S_y, one batched matmul
+    with an (nc+1) x (nc+1) lower-triangular decay matrix whose row nc is
+    the state after the last chunk.  The exponents are sums of runs of
+    a (cumulative sums of a masked copy, never differences of large
+    cumulative sums), -inf above the diagonal.  states (b, nc, h, n, p),
+    chunk_log_decay a = dA_cum[:, :, -1] (b, nc, h) → (the state entering
+    each chunk (b, nc, h, n, p), the final state (b, h, n, p))."""
+    b, nc, h, n, p = states.shape
+    m = nc + 1
+    a = F.pad(chunk_log_decay, (0, 0, 1, 0)).transpose(1, 2)  # (b, h, m)
+    lower = torch.ones((m, m), dtype=torch.bool,
+                       device=states.device).tril()          # y <= z
+    # seg[z, y] = a_pad[y+1] + ... + a_pad[z], the cumulative sum over z
+    # of a_pad[z] kept where y < z
+    run = a[..., None].expand(b, h, m, m).masked_fill(~lower.tril(-1), 0.0)
+    seg = run.cumsum(dim=-2).masked_fill_(~lower, float("-inf"))
+    # (b, h, z, y) @ (b, h, y, n*p) over [0, S_0, ..., S_{nc-1}]
+    s = F.pad(states, (0, 0, 0, 0, 0, 0, 1, 0)).permute(0, 2, 1, 3, 4)
+    out = torch.exp(seg) @ s.reshape(b, h, m, n * p)
+    out = out.reshape(b, h, m, n, p).permute(0, 2, 1, 3, 4)
+    return out[:, :nc], out[:, nc]
+
+
+def _ssd_off_diag(C, dA_cum, states_in):
+    """The carried state's contribution within each chunk: y_off[i] =
+    exp(dA_cum[i]) C_i · s_z — the reference's
+    ``"bzin,bzih,bzhnp->bzihp"``.  C (b, nc, c, n), dA_cum (b, nc, c, h),
+    states_in (b, nc, h, n, p) → (b, nc, c, h, p)."""
+    b, nc, c, n = C.shape
+    h, p = states_in.shape[2], states_in.shape[4]
+    s = states_in.permute(0, 1, 3, 2, 4).reshape(b, nc, n, h * p)
+    y = (C @ s).reshape(b, nc, c, h, p)                  # (b,nc,c,n)@(n,h*p)
+    return y * torch.exp(dA_cum)[..., None]
+
+
+def _ssd_chunked(x, dt, A, B, C, chunk: int):
+    """Chunked SSD (Mamba-2's matrix form), float32.
+
+    x: (b, l, h, p); dt: (b, l, h); A: (h,) negative; B, C: (b, l, n),
+    l a multiple of ``chunk``.  Returns (y (b, l, h, p), the state after
+    the sequence (b, h, n, p))."""
+    b, slen, h, p = x.shape
+    n = B.shape[-1]
+    if slen % chunk:
+        raise ValueError(f"the SSD takes a length that is a multiple of "
+                         f"its chunk {chunk}, got {slen}")
+    nc = slen // chunk
+    x = x.reshape(b, nc, chunk, h, p)
+    dt = dt.reshape(b, nc, chunk, h)
+    B = B.reshape(b, nc, chunk, n)
+    C = C.reshape(b, nc, chunk, n)
+    dA_cum = torch.cumsum(dt * A, dim=2)                    # (b, nc, c, h)
+    y_diag = _ssd_intra(x, dt, dA_cum, B, C)
+    states = _ssd_chunk_states(x, dt, dA_cum, B)
+    states_in, s_final = _ssd_recurrence(states, dA_cum[:, :, -1, :])
+    y = y_diag + _ssd_off_diag(C, dA_cum, states_in)
+    return y.reshape(b, slen, h, p), s_final
+
+
+def _mamba2_inputs(p: Params, proj: torch.Tensor, cfg: ModelConfig,
+                   conv_state=None):
+    """From ``in_proj``'s output: the conv over [x, B, C] (the K-1 rows
+    of its input it leaves are the new conv state), SiLU, and the
+    softplus'd step in float32.  Returns (x, z, B, C, dt, A, conv
+    state)."""
+    cd = cfg.compute_dtype_
+    di, n = cfg.d_inner_, cfg.ssm_state
+    xi, z, b, c, dt = torch.split(proj, [di, di, n, n, _mamba2_heads(cfg)],
+                                  dim=-1)
+    xbc, conv_state = _causal_conv(torch.cat([xi, b, c], dim=-1),
+                                   p["conv_w"].to(cd), p["conv_b"].to(cd),
+                                   conv_state)
+    xi, b, c = torch.split(F.silu(xbc), [di, n, n], dim=-1)
+    dt = F.softplus(dt.float() + p["dt_bias"][None, None])
+    return xi, z, b, c, dt, -torch.exp(p["A_log"]), conv_state
+
+
+def _gated_norm(p: Params, y: torch.Tensor, z: torch.Tensor,
+                cfg: ModelConfig):
+    """``out_proj``'s input from the SSD's float32 y (D x already added):
+    the gate first, then the norm — ``rmsnorm(norm, y·silu(z))``, y cast
+    to the compute dtype before the gate."""
+    return rmsnorm(p["norm"], y.to(cfg.compute_dtype_) * F.silu(z),
+                   cfg.norm_eps)
+
+
+def mamba2_forward(p: Params, x: torch.Tensor, cfg: ModelConfig,
+                   chunk: int = 64, return_state: bool = False):
+    """x: (B, L, d) → y (B, L, d) [, the state after the sequence:
+    {"conv": (B, K-1, di+2n), "ssm": (B, nh, n, p) float32}].
+
+    A length that is not a multiple of ``chunk`` pads x, dt, B and C with
+    zeros after the softplus, as the reference does: a padded step has dt
+    = 0 (decay 1, no input), so the final state is the state after the
+    last real token."""
+    di, hd = cfg.d_inner_, cfg.mamba_head_dim
+    nh = _mamba2_heads(cfg)
+    b, slen, _ = x.shape
+    proj = linear(p["in_proj"], x, cfg.compute_dtype_)
+    xi, z, bm, cm, dt, a, conv_state = _mamba2_inputs(p, proj, cfg)
+    pad = -slen % chunk
+    xi_p, dt_p, b_p, c_p = (F.pad(t, (0, 0, 0, pad)) if pad else t
+                            for t in (xi, dt, bm, cm))
+    y, s_final = _ssd_chunked(xi_p.float().reshape(b, -1, nh, hd), dt_p, a,
+                              b_p.float(), c_p.float(), chunk)
+    y = y[:, :slen] + xi.float().reshape(b, slen, nh, hd) \
+        * p["D"][None, None, :, None]
+    out = linear(p["out_proj"], _gated_norm(p, y.reshape(b, slen, di), z,
+                                            cfg), cfg.compute_dtype_)
+    if return_state:
+        return out, {"conv": conv_state, "ssm": s_final}
+    return out
+
+
+def mamba2_init_cache(cfg: ModelConfig, batch: int, *,
+                      device) -> dict[str, torch.Tensor]:
+    """One layer's zeroed decode state: conv (B, K-1, di+2n) in the
+    compute dtype, ssm (B, nh, n, p) float32."""
+    di, n = cfg.d_inner_, cfg.ssm_state
+    return {
+        "conv": torch.zeros((batch, cfg.conv_kernel - 1, di + 2 * n),
+                            dtype=cfg.compute_dtype_, device=device),
+        "ssm": torch.zeros((batch, _mamba2_heads(cfg), n,
+                            cfg.mamba_head_dim), dtype=torch.float32,
+                           device=device),
+    }
+
+
+def mamba2_decode(p: Params, x: torch.Tensor, cache: dict,
+                  cfg: ModelConfig):
+    """One-token SSD recurrence: h ← exp(dt A) h + dt B ⊗ x; y = C·h + D
+    x.  x: (B, 1, d); cache: {conv (B, K-1, di+2n), ssm (B, nh, n, p)}.
+    Returns (y (B, 1, d), the new {conv, ssm})."""
+    di, hd = cfg.d_inner_, cfg.mamba_head_dim
+    nh = _mamba2_heads(cfg)
+    b = x.shape[0]
+    proj = linear(p["in_proj"], x, cfg.compute_dtype_)
+    xi, z, bm, cm, dt, a, conv_state = _mamba2_inputs(p, proj, cfg,
+                                                      cache["conv"])
+    xh = xi[:, 0].float().reshape(b, nh, hd)
+    dt0 = dt[:, 0]                                          # (b, nh)
+    bt, ct = bm[:, 0].float(), cm[:, 0].float()             # (b, n)
+    # h: (b, nh, n, hd); dt_h B_n x_hp as (b,nh,1,1)·(b,1,n,1)·(b,nh,1,hd)
+    h = torch.exp(dt0 * a[None])[..., None, None] * cache["ssm"] + \
+        dt0[..., None, None] * bt[:, None, :, None] * xh[:, :, None, :]
+    y = (ct[:, None, None, :] @ h)[:, :, 0]                 # (b, nh, hd)
+    y = y + xh * p["D"][None, :, None]
+    out = linear(p["out_proj"], _gated_norm(p, y.reshape(b, 1, di), z, cfg),
+                 cfg.compute_dtype_)
+    return out, {"conv": conv_state, "ssm": h}
+
+
 __all__ = ["mamba1_decode", "mamba1_forward", "mamba1_init",
-           "mamba1_init_cache"]
+           "mamba1_init_cache", "mamba2_decode", "mamba2_forward",
+           "mamba2_init", "mamba2_init_cache"]

@@ -3,10 +3,12 @@
 The partner of ``repro/models/transformer.py`` for the attention
 family (``layer_kind == "attn"``: the dense gemma2-9b, qwen3-32b,
 stablelm-12b and yi-34b, and the mixture-of-experts qwen2-moe-a2.7b and
-mixtral-8x7b, whose FFN is ``models/moe.py``'s) and the Mamba-1 family
-(``layer_kind == "mamba1"``: falcon-mamba-7b).  The mamba2,
-shared-attention and embedding-input branches raise
-``NotImplementedError`` naming their ``ROADMAP.md`` item.
+mixtral-8x7b, whose FFN is ``models/moe.py``'s), the Mamba-1 family
+(``layer_kind == "mamba1"``: falcon-mamba-7b) and the hybrid zamba2-1.2b
+(``layer_kind == "mamba2"`` with ``shared_attn_every``: one attention
+block, one set of weights, run after every ``shared_attn_every``-th
+Mamba-2 layer, ``_layer_walk``).  The embedding-input branch raises
+``NotImplementedError`` naming its ``ROADMAP.md`` item.
 
 Parameters are nested dicts of tensors with the reference's keys, except
 that ``params["layers"]`` is a Python list of per-layer dicts where the
@@ -14,10 +16,13 @@ reference stacks a leading L axis for ``lax.scan``: the scan becomes a
 loop over that list (``models.convert.params_from_reference`` unstacks a
 reference tree).  The serving cache keeps the reference's layout — k and
 v are (L, B, Hkv, max_len, hd) tensors, or for mamba1 ``cache["mamba"] =
-{"conv": (L, B, K-1, di), "ssm": (L, B, di, N) float32}``, and lengths
-(B,) int32 — and decode writes each step's k and v, or each layer's new
-conv and SSM state, into it in place (JAX's functional update becomes an
-in-place write on one device).
+{"conv": (L, B, K-1, di), "ssm": (L, B, di, N) float32}`` and for mamba2
+{"conv": (L, B, K-1, di+2n), "ssm": (L, B, nh, n, p) float32}, plus the
+shared block's ``sa_k`` / ``sa_v`` (n_calls, B, Hkv, max_len, hd), one
+cache a call of the shared block; and lengths (B,) int32 — and decode
+writes each step's k and v, or each layer's new conv and SSM state, into
+it in place (JAX's functional update becomes an in-place write on one
+device).
 """
 
 from __future__ import annotations
@@ -34,27 +39,31 @@ from .config import ModelConfig
 from .layers import (Params, embed, embed_init, glu_mlp, glu_mlp_init,
                      layernorm, rmsnorm, unembed)
 from .mamba import (mamba1_decode, mamba1_forward, mamba1_init,
-                    mamba1_init_cache)
+                    mamba1_init_cache, mamba2_decode, mamba2_forward,
+                    mamba2_init, mamba2_init_cache)
 from .moe import moe_forward, moe_init
 
 
 def check_ported(cfg: ModelConfig, *, train_on=None) -> None:
     """Raise ``NotImplementedError`` for a family the port does not run —
     or, given ``train_on`` (the device a training step runs on), does
-    not train there: Mamba-1 trains on the CPU (the plain scan is
-    differentiable) but not on the card, whose ``scan_fwd`` has no
-    gradient."""
-    if cfg.layer_kind == "mamba2" or cfg.shared_attn_every > 0:
-        raise not_ported(f"{cfg.name}: mamba2 layers and shared attention",
-                         "Queue A #13d")
+    not train there: the Mamba families train on the CPU (the plain scan
+    and the SSD's tensor operations are differentiable) but not on the
+    card (``scan_fwd`` has no gradient; Mamba-2 training there waits for
+    the same item).  The shared attention block runs between Mamba
+    layers only, as in the reference's prefill and decode."""
     if cfg.input_mode != "tokens":
         raise not_ported(f"{cfg.name}: embedding inputs", "Queue A #13e")
-    if cfg.layer_kind not in ("attn", "mamba1"):
+    if cfg.layer_kind not in ("attn", "mamba1", "mamba2"):
         raise ValueError(cfg.layer_kind)
-    if cfg.layer_kind == "mamba1" and train_on is not None and \
+    if cfg.shared_attn_every > 0 and cfg.layer_kind == "attn":
+        raise ValueError(f"{cfg.name}: a shared attention block runs "
+                         f"between Mamba layers, not attention layers")
+    if cfg.layer_kind != "attn" and train_on is not None and \
             torch.device(train_on).type == "cuda":
-        raise not_ported(f"{cfg.name}: Mamba-1 training on the card (the "
-                         f"scan kernel has no gradient)", "Queue A #13f")
+        raise not_ported(f"{cfg.name}: {cfg.layer_kind} training on the "
+                         f"card (the scan kernel has no gradient)",
+                         "Queue A #13f")
 
 
 # ---------------------------------------------------------------------------
@@ -77,9 +86,9 @@ def _apply_norm(p: Params, x: torch.Tensor, cfg: ModelConfig):
 
 
 def _layer_init(gen: torch.Generator, cfg: ModelConfig) -> Params:
-    if cfg.layer_kind == "mamba1":
-        return {"norm1": _norm_init(cfg, gen.device),
-                "mixer": mamba1_init(gen, cfg)}
+    if cfg.layer_kind != "attn":
+        init = mamba1_init if cfg.layer_kind == "mamba1" else mamba2_init
+        return {"norm1": _norm_init(cfg, gen.device), "mixer": init(gen, cfg)}
     p: Params = {"norm1": _norm_init(cfg, gen.device),
                  "attn": attn_init(gen, cfg),
                  "norm2": _norm_init(cfg, gen.device),
@@ -105,6 +114,14 @@ def init_params(seed: int, cfg: ModelConfig, *, device="cuda") -> Params:
     if not cfg.tie_embeddings:
         p["lm_head"] = embed_init(gen, cfg.vocab, cfg.d_model,
                                   cfg.param_dtype_).T.contiguous()
+    if _shared_attn_positions(cfg):
+        sa_cfg = _shared_cfg(cfg)
+        p["shared_attn"] = {
+            "norm1": _norm_init(cfg, gen.device),
+            "attn": attn_init(gen, sa_cfg),
+            "norm2": _norm_init(cfg, gen.device),
+            "ffn": glu_mlp_init(gen, cfg.d_model, cfg.d_ff,
+                                cfg.param_dtype_)}
     return p
 
 
@@ -139,11 +156,39 @@ def _attn_block(lp: Params, x: torch.Tensor, cfg: ModelConfig, *,
 
 
 def _mamba_block(lp: Params, x: torch.Tensor, cfg: ModelConfig):
-    """Pre-norm Mamba-1 mixer with a residual, and the mixer's state after
-    the sequence."""
+    """Pre-norm Mamba-1 or Mamba-2 mixer with a residual, and the mixer's
+    state after the sequence."""
     h = _apply_norm(lp["norm1"], x, cfg)
-    y, state = mamba1_forward(lp["mixer"], h, cfg)
+    if cfg.layer_kind == "mamba1":
+        y, state = mamba1_forward(lp["mixer"], h, cfg)
+    else:
+        y, state = mamba2_forward(lp["mixer"], h, cfg, return_state=True)
     return x + y, state
+
+
+def _shared_attn_positions(cfg: ModelConfig) -> list[int]:
+    """zamba2: the layers after which the shared attention block runs."""
+    if cfg.shared_attn_every <= 0:
+        return []
+    return list(range(cfg.shared_attn_every - 1, cfg.n_layers,
+                      cfg.shared_attn_every))
+
+
+def _layer_walk(cfg: ModelConfig) -> list[tuple[int, int | None]]:
+    """Each layer's index and the call of the shared attention block that
+    follows it — its index into ``sa_k`` / ``sa_v`` — or None.  One walk
+    for ``forward``, ``prefill_forward`` and ``decode_step``: the
+    reference writes it three times, as segments between the calls (its
+    tests ``hi - 1 in sa_pos`` and ``si < len(sa_pos)`` agree)."""
+    calls = {layer: si for si, layer in
+             enumerate(_shared_attn_positions(cfg))}
+    return [(i, calls.get(i)) for i in range(cfg.n_layers)]
+
+
+def _shared_cfg(cfg: ModelConfig) -> ModelConfig:
+    """The shared block's configuration: a dense attention layer of the
+    model's widths."""
+    return cfg.replace(layer_kind="attn", n_experts=0)
 
 
 def _embed_inputs(params: Params, inputs: torch.Tensor, cfg: ModelConfig):
@@ -166,7 +211,7 @@ def _train_layer(lp: Params, x: torch.Tensor, cfg: ModelConfig,
                  window: int):
     """One layer of the full-sequence forward: (x, the layer's aux
     loss)."""
-    if cfg.layer_kind == "mamba1":
+    if cfg.layer_kind != "attn":
         return _mamba_block(lp, x, cfg)[0], 0.0
     x, aux, _ = _attn_block(lp, x, cfg, window=window)
     return x, aux
@@ -181,20 +226,25 @@ def forward(params: Params, inputs: torch.Tensor, cfg: ModelConfig):
     ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` of its
     layer function): its activations are recomputed in the backward, so
     on the card each attention layer launches the forward kernel twice a
-    step."""
+    step.  zamba2's shared block runs outside the checkpoints, as in the
+    reference."""
     check_ported(cfg)
     x = _embed_inputs(params, inputs, cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     windows = window_schedule(cfg) if cfg.layer_kind == "attn" \
         else [0] * cfg.n_layers
     remat = cfg.remat and torch.is_grad_enabled()
-    for lp, w in zip(params["layers"], windows):
+    for (i, si), w in zip(_layer_walk(cfg), windows):
+        lp = params["layers"][i]
         if remat:
             x, a = torch.utils.checkpoint.checkpoint(
                 _train_layer, lp, x, cfg, w, use_reentrant=False)
         else:
             x, a = _train_layer(lp, x, cfg, w)
         aux = aux + a
+        if si is not None:
+            x = _attn_block(params["shared_attn"], x, _shared_cfg(cfg),
+                            window=0)[0]
     return _logits(params, x, cfg), aux
 
 
@@ -219,44 +269,61 @@ def loss_fn(params: Params, batch: dict[str, torch.Tensor],
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                device="cuda") -> dict[str, Any]:
     """Serving state: zeroed k and v caches (L, B, Hkv, max_len, hd) in
-    the compute dtype — or for mamba1 the zeroed per-layer states
-    ``cache["mamba"]`` = {conv (L, B, K-1, di), ssm (L, B, di, N)
-    float32}, which do not grow with ``max_len`` — and lengths (B,) int32,
-    on ``device``."""
+    the compute dtype — or for the Mamba families the zeroed per-layer
+    states ``cache["mamba"]`` = {conv (L, B, K-1, di), ssm (L, B, di, N)}
+    (mamba1) or {conv (L, B, K-1, di+2n), ssm (L, B, nh, n, p)} (mamba2),
+    ssm in float32, which do not grow with ``max_len``, and for zamba2's
+    shared block ``sa_k`` / ``sa_v`` (n_calls, B, Hkv, max_len, hd) — and
+    lengths (B,) int32, on ``device``."""
     check_ported(cfg)
     dev = resolve_device(device)
-    if cfg.layer_kind == "mamba1":
-        one = mamba1_init_cache(cfg, batch, device=dev)
-        return {"lengths": torch.zeros((batch,), dtype=torch.int32,
-                                       device=dev),
-                "mamba": {name: torch.zeros((cfg.n_layers,) + t.shape,
+    cache: dict[str, Any] = {"lengths": torch.zeros((batch,),
+                                                    dtype=torch.int32,
+                                                    device=dev)}
+    if cfg.layer_kind == "attn":
+        names, n = ("k", "v"), cfg.n_layers
+    else:
+        init = mamba1_init_cache if cfg.layer_kind == "mamba1" \
+            else mamba2_init_cache
+        cache["mamba"] = {name: torch.zeros((cfg.n_layers,) + t.shape,
                                             dtype=t.dtype, device=dev)
-                          for name, t in one.items()}}
-    shape = (cfg.n_layers, batch, cfg.n_kv_heads, max_len, cfg.head_dim_)
-    return {"lengths": torch.zeros((batch,), dtype=torch.int32, device=dev),
-            "k": torch.zeros(shape, dtype=cfg.compute_dtype_, device=dev),
-            "v": torch.zeros(shape, dtype=cfg.compute_dtype_, device=dev)}
+                          for name, t in init(cfg, batch,
+                                              device=dev).items()}
+        names, n = ("sa_k", "sa_v"), len(_shared_attn_positions(cfg))
+    if n:
+        shape = (n, batch, cfg.n_kv_heads, max_len, cfg.head_dim_)
+        for name in names:
+            cache[name] = torch.zeros(shape, dtype=cfg.compute_dtype_,
+                                      device=dev)
+    return cache
 
 
 def decode_step(params: Params, cache: dict[str, Any], token: torch.Tensor,
                 cfg: ModelConfig):
     """One serving step: token (B, 1) ids → (logits (B, vocab) float32,
     cache).  The returned cache holds the same
-    k and v tensors, written in place at each row's length (for mamba1 the
-    same conv and ssm tensors, each layer's new state written in place),
-    and lengths + 1."""
+    k and v tensors, written in place at each row's length (for the Mamba
+    families the same conv and ssm tensors, each layer's new state written
+    in place, and zamba2's ``sa_k`` / ``sa_v``, each call of the shared
+    block writing its own at each row's length), and lengths + 1."""
     check_ported(cfg)
     x = _embed_inputs(params, token, cfg)
     lengths = cache["lengths"]
-    if cfg.layer_kind == "mamba1":
+    if cfg.layer_kind != "attn":
+        decode = mamba1_decode if cfg.layer_kind == "mamba1" \
+            else mamba2_decode
         states = cache["mamba"]
-        for i, lp in enumerate(params["layers"]):
+        for i, si in _layer_walk(cfg):
+            lp = params["layers"][i]
             h = _apply_norm(lp["norm1"], x, cfg)
-            y, new = mamba1_decode(lp["mixer"], h, {
+            y, new = decode(lp["mixer"], h, {
                 name: t[i] for name, t in states.items()}, cfg)
             for name, t in new.items():
                 states[name][i] = t
             x = x + y
+            if si is not None:
+                x = _shared_decode(params["shared_attn"], x, cache, si,
+                                   cfg)
     else:
         for i, (lp, w) in enumerate(zip(params["layers"],
                                         window_schedule(cfg))):
@@ -271,23 +338,43 @@ def decode_step(params: Params, cache: dict[str, Any], token: torch.Tensor,
     return logits, dict(cache, lengths=lengths + 1)
 
 
+def _shared_decode(sp: Params, x: torch.Tensor, cache: dict[str, Any],
+                   si: int, cfg: ModelConfig) -> torch.Tensor:
+    """Call ``si`` of the shared block on one token: the shared weights,
+    call ``si``'s own k and v caches (written in place at each row's
+    length)."""
+    sa_cfg = _shared_cfg(cfg)
+    h = _apply_norm(sp["norm1"], x, sa_cfg)
+    a, _, _ = attn_decode(sp["attn"], h, sa_cfg, window=0,
+                          k_cache=cache["sa_k"][si],
+                          v_cache=cache["sa_v"][si],
+                          lengths=cache["lengths"])
+    return _ffn_half(sp, x + a, sa_cfg)[0]
+
+
 def prefill_forward(params: Params, inputs: torch.Tensor, cfg: ModelConfig,
                     max_len: int):
     """One forward pass over the prompt that also fills the serving cache.
 
     inputs: (B, S) tokens.  Returns (last_logits
     (B, vocab), cache) with caches of ``max_len`` positions, the prompt's
-    k and v in the first S (for mamba1 each layer's conv and SSM state
-    after the prompt)."""
+    k and v in the first S (for the Mamba families each layer's conv and
+    SSM state after the prompt, and each shared-block call's k and v in
+    the first S of its ``sa_k`` / ``sa_v``)."""
     check_ported(cfg)
     b, s = inputs.shape[0], inputs.shape[1]
     x = _embed_inputs(params, inputs, cfg)
     cache = init_cache(cfg, b, max_len, device=x.device)
-    if cfg.layer_kind == "mamba1":
-        for i, lp in enumerate(params["layers"]):
-            x, state = _mamba_block(lp, x, cfg)
+    if cfg.layer_kind != "attn":
+        for i, si in _layer_walk(cfg):
+            x, state = _mamba_block(params["layers"][i], x, cfg)
             for name, t in state.items():
                 cache["mamba"][name][i] = t
+            if si is not None:
+                x, _, (k, v) = _attn_block(params["shared_attn"], x,
+                                           _shared_cfg(cfg), window=0)
+                cache["sa_k"][si, :, :, :s] = k
+                cache["sa_v"][si, :, :, :s] = v
     else:
         for i, (lp, w) in enumerate(zip(params["layers"],
                                         window_schedule(cfg))):
