@@ -40,6 +40,16 @@ program has none, so only PL005 applies to it, as in the reference.
 
 PL006 (carry donation) has no counterpart: the port updates its carry in
 place, so there is no donation to misuse.
+
+CLI (the reference's ``main``)::
+
+    PYTHONPATH=src python -m repro_torch.analysis.planlint my_jobs.py dir/
+
+builds the programs of every module named (or every ``*.py`` in a
+directory named) that exposes ``build_pipelines() -> {name:
+BuiltPipeline}`` — port pipelines, built with the device the module
+chooses — and checks each; error-level findings fail the run.  It has no
+default path: the reference's ``examples/`` build reference pipelines.
 """
 
 from __future__ import annotations
@@ -319,3 +329,66 @@ def explain_plan(built, *, source_prefixes=()) -> str:
         lines.append("planlint:")
         lines.extend("  " + d.format() for d in diags)
     return "\n".join(lines)
+
+
+def _load_module(path):
+    import importlib.util
+    import pathlib
+    p = pathlib.Path(path)
+    name = f"_planlint_{p.stem}"
+    spec = importlib.util.spec_from_file_location(name, p)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def main(argv=None) -> int:
+    """``python -m repro_torch.analysis.planlint <files-or-dirs>`` — build
+    every named module's pipelines (the ``build_pipelines()`` convention)
+    and check them; 1 when any error-level finding remains, else 0."""
+    import argparse
+    import pathlib
+
+    ap = argparse.ArgumentParser(
+        prog="python -m repro_torch.analysis.planlint",
+        description="planlint over pipeline modules of the port")
+    ap.add_argument("paths", nargs="+",
+                    help="modules (or directories of modules) exposing "
+                         "build_pipelines() -> {name: BuiltPipeline}")
+    args = ap.parse_args(argv)
+    files: list = []
+    for raw in args.paths:
+        p = pathlib.Path(raw)
+        if p.is_dir():
+            files.extend(sorted(p.glob("*.py")))
+        else:
+            files.append(p)
+    failed = 0
+    checked = 0
+    for f in files:
+        mod = _load_module(f)
+        build = getattr(mod, "build_pipelines", None)
+        if build is None:
+            print(f"{f}: skipped (no build_pipelines())")
+            continue
+        programs = build()
+        if not isinstance(programs, dict):
+            programs = {getattr(p, "job_id", str(i)): p
+                        for i, p in enumerate(programs)}
+        for name, prog in programs.items():
+            diags = check_plan(prog)
+            errs = [d for d in diags if d.level == ERROR]
+            warns = [d for d in diags if d.level == WARNING]
+            checked += 1
+            status = "clean" if not (errs or warns) else \
+                f"{len(errs)} error(s), {len(warns)} warning(s)"
+            print(f"{f}:{name}: {status}")
+            for d in errs + warns:
+                print(f"  {d.format()}")
+            failed += len(errs)
+    print(f"planlint: {checked} program(s) checked, {failed} error(s)")
+    return 1 if failed else 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,12 +1,11 @@
 """Architecture registry: the partner of ``repro/configs/__init__.py``.
 
-Each ported module defines ``CONFIG`` (the published configuration, copied
+Each module defines ``CONFIG`` (the published configuration, copied
 from the reference) and ``reduced()`` (a tiny same-family variant for the
-CPU tests).  The port serves the token-input attention architectures,
-dense and mixture-of-experts, falcon-mamba-7b (Mamba-1) and the hybrid
-zamba2-1.2b (Mamba-2 layers and a shared attention block); the other
-names stay in ``ARCHS``, and ``get`` / ``get_reduced`` on them raise ``NotImplementedError`` naming the
-``ROADMAP.md`` item that ports them.
+CPU tests), for all ten of the reference's architectures: the dense and
+mixture-of-experts attention models, internvl2-2b (patch-embedding
+inputs) and musicgen-medium (LayerNorm, GELU), falcon-mamba-7b (Mamba-1)
+and the hybrid zamba2-1.2b (Mamba-2 layers and a shared attention block).
 """
 
 from __future__ import annotations
@@ -28,22 +27,12 @@ ARCHS = [
     "musicgen-medium",
 ]
 
-#: architectures not ported yet → the ROADMAP item that ports them
-NOT_PORTED = {
-    "internvl2-2b": "Queue A #13e (embedding-input frontends)",
-    "musicgen-medium": "Queue A #13e (embedding-input frontends)",
-}
-
 _MODULES = {name: name.replace("-", "_").replace(".", "_") for name in ARCHS}
 
 
 def _load(name: str):
     if name not in _MODULES:
         raise KeyError(f"unknown arch {name!r}; known: {ARCHS}")
-    if name in NOT_PORTED:
-        raise NotImplementedError(f"arch {name!r} is not ported to "
-                                  f"repro_torch yet (ROADMAP.md "
-                                  f"{NOT_PORTED[name]})")
     return importlib.import_module(f"{__name__}.{_MODULES[name]}")
 
 
@@ -58,8 +47,8 @@ def get_reduced(name: str) -> ModelConfig:
 
 
 def all_configs() -> dict[str, ModelConfig]:
-    """Every ported architecture's published configuration."""
-    return {name: get(name) for name in ARCHS if name not in NOT_PORTED}
+    """Every architecture's published configuration."""
+    return {name: get(name) for name in ARCHS}
 
 
-__all__ = ["ARCHS", "NOT_PORTED", "all_configs", "get", "get_reduced"]
+__all__ = ["ARCHS", "all_configs", "get", "get_reduced"]

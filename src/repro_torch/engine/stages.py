@@ -129,6 +129,23 @@ def shuffle_aggregate(keys: torch.Tensor, values: torch.Tensor, axis,
     return axis.psum_scatter(local)
 
 
+def shuffle_aggregate_windowed(window_slots: torch.Tensor, keys: torch.Tensor,
+                               values: torch.Tensor, axis, n_slots: int,
+                               num_buckets: int,
+                               valid: torch.Tensor | None = None,
+                               combine_fn=None) -> torch.Tensor:
+    """Windowed aggregating shuffle: each record's (window slot, bucket)
+    pair flattened into one dense id space of ``n_slots * num_buckets``
+    and folded through ``shuffle_aggregate``.  Returns each local worker's
+    contiguous slice of the flattened ``(n_slots * num_buckets, ...)``
+    update, as the reference's does.  The port's streaming plans fold
+    through ``fused_fold`` instead; this keeps the reference's surface
+    (``core.shuffle``)."""
+    flat = window_slots.to(torch.int32) * num_buckets + keys.to(torch.int32)
+    return shuffle_aggregate(flat, values, axis, n_slots * num_buckets,
+                             valid=valid, combine_fn=combine_fn)
+
+
 def bucket_owner(num_buckets: int, n_partitions: int) -> np.ndarray:
     """Host helper: which partition owns each bucket id under the
     aggregating shuffle's tiled scatter (contiguous ranges over the padded

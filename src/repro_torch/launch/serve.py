@@ -289,9 +289,10 @@ class JobSocketServer(FrameServer):
         self.rpc = rpc
 
 
-def main() -> None:
+def main(argv=None) -> None:
     """Serve random prompts on an architecture's reduced configuration and
-    print tokens/s."""
+    print tokens/s.  An embeddings architecture is refused with the
+    reference's ``SystemExit``: the driver makes token prompts."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True, choices=configs.ARCHS)
     ap.add_argument("--requests", type=int, default=8)
@@ -301,9 +302,12 @@ def main() -> None:
     ap.add_argument("--max-len", type=int, default=128)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
-    args = ap.parse_args()
+    args = ap.parse_args(argv)
 
     cfg = configs.get_reduced(args.arch)
+    if cfg.input_mode == "embeddings":
+        raise SystemExit(f"{args.arch} serves embeddings; this driver is for "
+                         "token LMs")
     params = init_params(args.seed, cfg, device=args.device)
     server = BatchedServer(cfg, params, args.slots, args.max_len,
                            device=args.device)

@@ -26,7 +26,9 @@ from ..runtime import Trainer, TrainerConfig
 
 
 def main(argv=None) -> None:
-    """Parse the reference's flags (plus ``--device``) and train."""
+    """Parse the reference's flags (plus ``--device``) and train.  An
+    embeddings architecture is refused with the reference's
+    ``SystemExit``: the synthetic corpus is token ids."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True, choices=configs.ARCHS)
     ap.add_argument("--reduced", action="store_true",
@@ -48,6 +50,9 @@ def main(argv=None) -> None:
 
     cfg = configs.get_reduced(args.arch) if args.reduced \
         else configs.get(args.arch)
+    if cfg.input_mode == "embeddings":
+        raise SystemExit(f"{args.arch} trains on frontend embeddings; use "
+                         "examples/train_lm.py for token-LM training")
 
     corpus_store, prefix = make_store_with_corpus(args.corpus_words)
     tok = HashTokenizer(cfg.vocab)

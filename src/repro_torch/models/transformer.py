@@ -7,8 +7,11 @@ mixtral-8x7b, whose FFN is ``models/moe.py``'s), the Mamba-1 family
 (``layer_kind == "mamba1"``: falcon-mamba-7b) and the hybrid zamba2-1.2b
 (``layer_kind == "mamba2"`` with ``shared_attn_every``: one attention
 block, one set of weights, run after every ``shared_attn_every``-th
-Mamba-2 layer, ``_layer_walk``).  The embedding-input branch raises
-``NotImplementedError`` naming its ``ROADMAP.md`` item.
+Mamba-2 layer, ``_layer_walk``).  An embedding-input configuration
+(``input_mode == "embeddings"``: internvl2-2b, whose vision frontend is a
+stub) takes (B, S, d) inputs in place of token ids in ``forward`` and
+``prefill_forward``, and in ``decode_step`` whenever the step's input is
+(B, 1, d) (``_embed_inputs``).
 
 Parameters are nested dicts of tensors with the reference's keys, except
 that ``params["layers"]`` is a Python list of per-layer dicts where the
@@ -52,8 +55,6 @@ def check_ported(cfg: ModelConfig, *, train_on=None) -> None:
     card (``scan_fwd`` has no gradient; Mamba-2 training there waits for
     the same item).  The shared attention block runs between Mamba
     layers only, as in the reference's prefill and decode."""
-    if cfg.input_mode != "tokens":
-        raise not_ported(f"{cfg.name}: embedding inputs", "Queue A #13e")
     if cfg.layer_kind not in ("attn", "mamba1", "mamba2"):
         raise ValueError(cfg.layer_kind)
     if cfg.shared_attn_every > 0 and cfg.layer_kind == "attn":
@@ -191,7 +192,15 @@ def _shared_cfg(cfg: ModelConfig) -> ModelConfig:
     return cfg.replace(layer_kind="attn", n_experts=0)
 
 
-def _embed_inputs(params: Params, inputs: torch.Tensor, cfg: ModelConfig):
+def _embed_inputs(params: Params, inputs: torch.Tensor, cfg: ModelConfig,
+                  *, decode: bool = False):
+    """The first layer's input in the compute dtype.  An embeddings
+    configuration's (B, S, d) inputs are cast, with no embed scale; in a
+    decode step only a (B, 1, d) input is taken as embeddings, and (B, 1)
+    ids go through ``params["embed"]`` as for a token model (the
+    reference's two rules)."""
+    if cfg.input_mode == "embeddings" and (not decode or inputs.dim() == 3):
+        return inputs.to(cfg.compute_dtype_)
     scale = cfg.d_model ** 0.5 if cfg.embed_scale else None
     return embed(params["embed"], inputs, scale, cfg.compute_dtype_)
 
@@ -218,7 +227,8 @@ def _train_layer(lp: Params, x: torch.Tensor, cfg: ModelConfig,
 
 
 def forward(params: Params, inputs: torch.Tensor, cfg: ModelConfig):
-    """inputs: (B, S) token ids.  Returns (logits (B, S, vocab) float32,
+    """inputs: (B, S) token ids, or (B, S, d) embeddings for an
+    embeddings configuration.  Returns (logits (B, S, vocab) float32,
     aux loss) — the MoE layers' router losses summed over layers, as the
     reference's scan carries them; 0 for the dense and Mamba-1 families.
 
@@ -250,8 +260,8 @@ def forward(params: Params, inputs: torch.Tensor, cfg: ModelConfig):
 
 def loss_fn(params: Params, batch: dict[str, torch.Tensor],
             cfg: ModelConfig):
-    """batch: {"inputs": (B, S), "labels": (B, S)}; labels < 0 are
-    ignored.  Returns (loss, metrics)."""
+    """batch: {"inputs": (B, S) ids or (B, S, d) embeddings, "labels":
+    (B, S)}; labels < 0 are ignored.  Returns (loss, metrics)."""
     logits, aux = forward(params, batch["inputs"], cfg)
     labels = batch["labels"]
     mask = (labels >= 0).float()
@@ -300,14 +310,15 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
 
 def decode_step(params: Params, cache: dict[str, Any], token: torch.Tensor,
                 cfg: ModelConfig):
-    """One serving step: token (B, 1) ids → (logits (B, vocab) float32,
+    """One serving step: token (B, 1) ids — or, for an embeddings
+    configuration, (B, 1, d) embeddings — → (logits (B, vocab) float32,
     cache).  The returned cache holds the same
     k and v tensors, written in place at each row's length (for the Mamba
     families the same conv and ssm tensors, each layer's new state written
     in place, and zamba2's ``sa_k`` / ``sa_v``, each call of the shared
     block writing its own at each row's length), and lengths + 1."""
     check_ported(cfg)
-    x = _embed_inputs(params, token, cfg)
+    x = _embed_inputs(params, token, cfg, decode=True)
     lengths = cache["lengths"]
     if cfg.layer_kind != "attn":
         decode = mamba1_decode if cfg.layer_kind == "mamba1" \
@@ -356,7 +367,8 @@ def prefill_forward(params: Params, inputs: torch.Tensor, cfg: ModelConfig,
                     max_len: int):
     """One forward pass over the prompt that also fills the serving cache.
 
-    inputs: (B, S) tokens.  Returns (last_logits
+    inputs: (B, S) tokens, or (B, S, d) embeddings for an embeddings
+    configuration.  Returns (last_logits
     (B, vocab), cache) with caches of ``max_len`` positions, the prompt's
     k and v in the first S (for the Mamba families each layer's conv and
     SSM state after the prompt, and each shared-block call's k and v in

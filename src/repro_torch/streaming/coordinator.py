@@ -704,7 +704,8 @@ class StreamingCoordinator:
             self._pending_stats.append((si, stats))
             return
         # the synchronous (overlap-off) path reads per fold by design
-        self._apply_stats(si, stats.tolist(), report)
+        counters = stats.tolist()  # reprolint: disable=RL102
+        self._apply_stats(si, counters, report)
 
     def _apply_stats(self, si: int, counters, report: StreamReport) -> None:
         late, expanded, dropped = counters

@@ -250,27 +250,6 @@ def test_configs_copy_the_reference():
     assert configs.get("gemma2-9b").n_params() == 9_241_401_344
 
 
-@pytest.mark.parametrize("arch", [a for a in ref_configs.ARCHS
-                                  if a not in ARCHS + ["falcon-mamba-7b",
-                                                       "zamba2-1.2b"]])
-def test_unported_archs_raise_naming_their_roadmap_item(arch):
-    for get in (configs.get, configs.get_reduced):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A"):
-            get(arch)
-    with pytest.raises(KeyError):
-        configs.get("gpt-2")
-
-
-@pytest.mark.parametrize("change,item", [
-    (dict(input_mode="embeddings"), "#13e")])
-def test_unported_families_raise(change, item):
-    cfg = configs.get_reduced("yi-34b").replace(**change)
-    with pytest.raises(NotImplementedError, match=item):
-        init_params(0, cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match=item):
-        init_cache(cfg, 1, 8, device="cpu")
-
-
 def test_port_init_serves_on_the_cpu():
     """The port's own random init (a torch.Generator from the seed) gives
     finite logits and a server that drains, with no kernel launched."""
