@@ -505,6 +505,24 @@ card, phase by phase; any mismatch raises and the script exits non-zero:
    reference's serving): every request drains, decode launches = 24 x the
    decode steps.  No new kernel: both models attend through ``fwd_wgmma``
    and ``decode_cluster``.
+27. The paper's system under ``backend="shard_map"`` in a world of one
+   NCCL rank (a ``file://`` store), then the port's
+   examples.  (a) Phase 18's ``toll_inputs_join`` over both logs: its
+   sinks equal phase 18's fused run byte for byte, ``fused_fold``'s
+   launches (counts set to 0 just before) equal the fold steps (31 a
+   side), each side's first folds leave the other channel pair exactly
+   untouched, and the collectives of a fold step (the side's pair
+   reduce-scattered, the stats all_reduced) are timed with CUDA events
+   against the fused step at one 65,536-report micro-batch.  (b) Phase
+   16's three tenants on one Linear Road ingest (the whole log, two
+   minutes appended): every job PARKED after the drain, cold restores,
+   DONE, every tenant's sinks equal phase 16's, launches equal the fold
+   steps, each segment read once, tenant-records/s against phase 16's;
+   the collectives of both parts are counted.  (c) Each of
+   ``examples_torch/``'s six ``main()``s on the card at its CI cap
+   (``EXAMPLES``, ``EXAMPLE_ENV``), making its reference counterpart's
+   assertions: its host wall, and the kernels it launched (counts set to
+   0 just before, ``EXAMPLE_KERNELS`` required among them).
 
 Before the last line it prints one JSON object ``{"kernels": [...]}``
 (per kernel: launches on its main path, error, kernel / plain / bound /
@@ -3126,15 +3144,16 @@ def _segment_counting_store(store_cls, prefix: str):
     return SegmentCountingStore()
 
 
-def service_programs(lr, n_xways: int, device) -> dict:
+def service_programs(lr, n_xways: int, device, **build) -> dict:
     """Phase 16's three tenants' programs over one Linear Road log:
     ``lav`` (phase 3's job), per-segment report counts a minute (volume),
     and the 100 fastest segments by mean speed every 5 minutes (top-k
     emission on the device).  Windowed aggregates are count, sum and mean
     in both packages, so no tenant folds a min or a max (phase 2 checks
-    the kernel's extremum kinds)."""
+    the kernel's extremum kinds).  ``build``: more build options (phase
+    27's backend and worker count)."""
     from repro_torch.pipeline import Pipeline, Windowing
-    opts = lr.build_options(n_xways)
+    opts = dict(lr.build_options(n_xways), **build)
 
     def tenant(window, agg, sink, job_id, top=None):
         pipe = (Pipeline.from_source(batch_records=lr.BATCH_RECORDS)
@@ -3153,13 +3172,13 @@ def service_programs(lr, n_xways: int, device) -> dict:
     }
 
 
-def phase_job_service(torch, ops, lr, device, full=None) -> int:
+def phase_job_service(torch, ops, lr, device, full=None) -> tuple:
     """Phase 16: one JobServer on the card, three tenants on one shared
     ingest of phase 3's Linear Road log; scale to zero after the log
     drains, two more minutes appended, cold restores, and every tenant's
     sinks against its program run alone over the whole log, built for the
     card and for the CPU (the fold's plain version).  Returns the
-    fused_fold launches of the service's run."""
+    fused_fold launches of the service's run and each tenant's sinks."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -3168,7 +3187,7 @@ def phase_job_service(torch, ops, lr, device, full=None) -> int:
     from repro_torch.service import JobServer, ParkPolicy
     from repro_torch.streaming import StreamSource, write_event_log
 
-    full = full or lr.FULL
+    full = lr.FULL
     prefix = "linear-road/reports"
     ts, seg, speed = lr.position_reports(SEED, **full)
     ts2, seg2, speed2 = lr.position_reports(
@@ -3274,6 +3293,7 @@ def phase_job_service(torch, ops, lr, device, full=None) -> int:
     # plain version, so the card's sinks are held against it, not only
     # against the same card-built program run alone
     plain = service_programs(lr, full["n_xways"], "cpu")
+    sinks = {}
     for tenant, program in programs.items():
         card, card_s = alone(program)
         want, plain_s = alone(plain[tenant])
@@ -3286,6 +3306,7 @@ def phase_job_service(torch, ops, lr, device, full=None) -> int:
                 f"tenant {tenant}: service sinks == plain {got == want}, "
                 f"card alone == plain {card == want} ({len(got)} / "
                 f"{len(card)} / {len(want)} objects)")
+        sinks[tenant] = got
         print(f"service tenant {tenant}: {len(got)} sink objects "
               f"byte-identical to the program run alone on the card "
               f"({card_s:.3f} s) and built for the CPU, the fold's plain "
@@ -3304,7 +3325,7 @@ def phase_job_service(torch, ops, lr, device, full=None) -> int:
             raise AssertionError(f"{key}: LAV differs from phase 3's oracle")
     print(f"service tenant traffic-lav: {len(oracle)} windows == phase 3's "
           f"numpy oracle over the whole log", flush=True)
-    return launches
+    return launches, sinks
 
 
 def _lr_log(lr, records, prefixes):
@@ -3512,7 +3533,47 @@ def phase_congestion_chain(torch, ops, lr, device, full=None) -> int:
     return launches
 
 
-def phase_toll_join(torch, ops, lr, device, full=None) -> int:
+class _PairCheck:
+    """While entered, ``CompiledStreamAggregate.step`` counts the folds of
+    each channel base (``bases``) and checks that each base's first three
+    folds (``checked``) leave every other channel of the carry exactly as
+    it was: a join side touches its own ``[sum, count]`` pair only."""
+
+    def __init__(self, torch):
+        from collections import Counter
+
+        from repro_torch.engine.plan import CompiledStreamAggregate
+        self.torch = torch
+        self.cls = CompiledStreamAggregate
+        self.bases, self.checked = Counter(), Counter()
+
+    def __enter__(self):
+        orig = self.orig = self.cls.step
+        torch, bases, checked = self.torch, self.bases, self.checked
+
+        def checked_step(plan, rows, carry, min_window=None):
+            base = plan.plan.reduce.channel_base
+            bases[base] += 1
+            if checked[base] >= 3:
+                return orig(plan, rows, carry, min_window)
+            checked[base] += 1
+            other = [c for c in range(carry.shape[1])
+                     if c not in (base, base + 1)]
+            before = carry[:, other].clone()
+            out = orig(plan, rows, carry, min_window)
+            if not torch.equal(out[0][:, other], before):
+                raise AssertionError(f"a fold at channel base {base} "
+                                     f"touched channels {other}")
+            return out
+
+        self.cls.step = checked_step
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.step = self.orig
+
+
+def phase_toll_join(torch, ops, lr, device, full=None) -> tuple:
     """Phase 18: ``toll_inputs_join`` — mean speed ⋈ report count per
     segment per minute, over phase 3's reports written under two
     prefixes — on the card.  Both sides fold into one 4-channel carry at
@@ -3521,11 +3582,7 @@ def phase_toll_join(torch, ops, lr, device, full=None) -> int:
     narrower side's carry is wider than its key space; the sinks must equal the program built with
     ``device="cpu"`` byte for byte, and the numpy oracle; fused_fold's
     launches (counts set to 0 just before) must equal the fold steps.
-    Returns the launches of the card run."""
-    from collections import Counter
-
-    from repro_torch.engine.plan import CompiledStreamAggregate
-
+    Returns the launches and the sinks of the card run."""
     full = full or lr.FULL
     prefixes = ("linear-road/speeds", "linear-road/counts")
     ts, seg, speed = lr.position_reports(SEED, **full)
@@ -3553,32 +3610,12 @@ def phase_toll_join(torch, ops, lr, device, full=None) -> int:
         raise AssertionError(f"join sides (channel base, num_buckets, "
                              f"carry_buckets) {geometry} with a "
                              f"{tuple(carry.shape)} carry")
-    bases, checked = Counter(), Counter()
-    orig_step = CompiledStreamAggregate.step
-
-    def checked_step(self, rows, carry, min_window=None):
-        base = self.plan.reduce.channel_base
-        bases[base] += 1
-        if checked[base] >= 3:
-            return orig_step(self, rows, carry, min_window)
-        checked[base] += 1
-        other = [c for c in range(carry.shape[1]) if c not in (base,
-                                                                base + 1)]
-        before = carry[:, other].clone()
-        out = orig_step(self, rows, carry, min_window)
-        if not torch.equal(out[0][:, other], before):
-            raise AssertionError(f"a fold at channel base {base} touched "
-                                 f"channels {other}")
-        return out
-
-    CompiledStreamAggregate.step = checked_step
-    try:
+    with _PairCheck(torch) as pairs:
         store = _lr_log(lr, records, prefixes)
         ops.fold.launches = 0
         report, got, wall = _drive(card, store)
         launches = ops.fold.launches
-    finally:
-        CompiledStreamAggregate.step = orig_step
+    bases, checked = pairs.bases, pairs.checked
     if launches != report.folds or set(bases) != {0, 2}:
         raise AssertionError(f"fused_fold launched {launches} times for "
                              f"{report.folds} fold steps (per channel base "
@@ -3616,7 +3653,7 @@ def phase_toll_join(torch, ops, lr, device, full=None) -> int:
           f"records/s) and equal to the numpy oracle; (segment, minute) "
           f"pairs under 40 mph with more than 50 reports: {slow_busy}",
           flush=True)
-    return launches
+    return launches, got
 
 
 # -- phases 19-20: group mode -------------------------------------------------
@@ -3943,7 +3980,8 @@ class _Collectives:
     it is entered (the module attributes are swapped for counting
     wrappers, and put back on exit)."""
 
-    NAMES = ("all_to_all_single", "all_gather", "all_reduce")
+    NAMES = ("all_to_all_single", "all_gather", "all_reduce",
+             "broadcast_object_list", "all_gather_object")
 
     def __init__(self, dist):
         self.dist = dist
@@ -3963,14 +4001,24 @@ class _Collectives:
             setattr(self.dist, name, fn)
 
 
+def _world_of_one(torch):
+    """The default group as a world of one NCCL rank, through a
+    ``file://`` store in a fresh temporary directory (phases 21 and 27)."""
+    import tempfile
+
+    import torch.distributed as dist
+    root = tempfile.mkdtemp(prefix="chip_smoke_pg_")
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{root}/pg",
+                            rank=0, world_size=1)
+    return dist
+
+
 def phase_backends(torch, ops, hc, lr, wc, store, sinks, shards, counts,
                    device) -> None:
     """Phase 21: ``backend="vmap"`` and ``backend="shard_map"`` (a world of
     one NCCL rank) on the card, each against the fused runs of phases 3
     and 6b."""
-    import tempfile
-
-    import torch.distributed as dist
     n_workers = lr.build_options(lr.FULL["n_xways"])["n_workers"]
     fused_built = lr.lav_pipeline("linear-road/reports").build(
         device=device, job_id="linear-road-lav-steps",
@@ -3996,10 +4044,7 @@ def phase_backends(torch, ops, hc, lr, wc, store, sinks, shards, counts,
                              f"allocations (fused: {ft['allocs']}): not one "
                              f"launch without a copy")
 
-    root = tempfile.mkdtemp(prefix="chip_smoke_pg_")
-    torch.cuda.set_device(0)
-    dist.init_process_group("nccl", init_method=f"file://{root}/pg",
-                            rank=0, world_size=1)
+    dist = _world_of_one(torch)
     try:
         with _Collectives(dist) as coll:
             data = torch.from_numpy(shards.reshape(-1, shards.shape[-1]))
@@ -5435,6 +5480,314 @@ def phase_embed_serving(torch, fa, params, cfg, device) -> None:
           f"forward launches", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# Phase 27: the paper's system under shard_map, and the port's examples
+# ---------------------------------------------------------------------------
+
+#: the examples' CI caps (``examples_torch/``): their environment and argv
+EXAMPLE_ENV = {"STREAM_GPS_DURATION": "120", "JOB_SERVER_DURATION": "120"}
+EXAMPLES = {"quickstart": [], "stream_gps": [], "pipeline_jobs": [],
+            "job_server": [], "serve_lm": [],
+            "train_lm": ["--steps", "20", "--corpus-words", "200000"]}
+#: phases 27a and 27b: the minutes of phase 3's log (its first 30% of
+#: reports) over which the fused and the ``shard_map`` drives are timed
+#: back to back, and the order of those drives
+AB_MINUTES = 3
+AB_ORDER = ("fused", "shard_map", "shard_map", "fused")
+#: the kernels each example's main path must launch on the card
+EXAMPLE_KERNELS = {"quickstart": ("hash_combine",),
+                   "stream_gps": ("fused_fold",),
+                   "pipeline_jobs": ("fused_fold",),
+                   "job_server": ("fused_fold",),
+                   "serve_lm": ("decode_cluster",),
+                   "train_lm": ("flash_attention_fwd",)}
+
+
+def _interleaved(drives: dict) -> tuple[dict, dict]:
+    """``drives`` (``"fused"`` and ``"shard_map"``, each a call that sets
+    up a fresh store and returns ``(records, sinks, host wall)`` of one
+    timed run) run back to back in ``AB_ORDER``; every run's sinks must
+    equal the first's.  Returns each backend's records/s over its runs
+    (records summed over walls summed) and its walls."""
+    walls = {name: [] for name in drives}
+    records = dict.fromkeys(drives, 0)
+    first = None
+    for name in AB_ORDER:
+        n, sinks, wall = drives[name]()
+        if first is None:
+            first = sinks
+        elif sinks != first:
+            raise AssertionError(f"{name} drive's sinks differ from the "
+                                 f"{AB_ORDER[0]} drive's")
+        walls[name].append(wall)
+        records[name] += n
+    return {name: records[name] / sum(walls[name]) for name in drives}, walls
+
+
+def _ab_text(rates: dict, walls: dict) -> str:
+    return (f"shard_map {rates['shard_map']:.0f} records/s against fused "
+            f"{rates['fused']:.0f} = {rates['shard_map'] / rates['fused']:.4f}x "
+            f"(host walls, {' '.join(AB_ORDER)}: shard_map "
+            f"{' / '.join(f'{w:.3f}' for w in walls['shard_map'])} s, fused "
+            f"{' / '.join(f'{w:.3f}' for w in walls['fused'])} s)")
+
+
+def _join_wire(torch, lr, ts, seg, speed, device):
+    """One 65,536-report micro-batch as a join side's device-wire rows
+    (tumbling minutes: one window a report)."""
+    n = min(lr.BATCH_RECORDS, len(ts))
+    last = np.floor(ts[:n] / lr.MINUTE).astype(np.int64)
+    base = (int(last.min()) // lr.N_SLOTS) * lr.N_SLOTS
+    rows = np.stack([last - base, np.ones(n), seg[:n], speed[:n],
+                     np.ones(n)], axis=1).astype(np.float32)
+    return torch.from_numpy(rows).to(device)
+
+
+def phase_shard_map_join(torch, ops, lr, device, want) -> None:
+    """Phase 27a: phase 18's ``toll_inputs_join`` under
+    ``backend="shard_map"`` in a world of one NCCL rank: its sinks equal
+    phase 18's fused run (``want``) byte for byte, fused_fold's launches
+    (counts set to 0 just before) equal the fold steps, each side's first
+    folds leave the other pair untouched, and a step's collectives are
+    timed against the fused step at the main shape.  Then the fused and
+    the ``shard_map`` join drive the first ``AB_MINUTES`` of the log back
+    to back (``AB_ORDER``), with equal sinks, for their records/s."""
+    full = lr.FULL
+    prefixes = ("linear-road/speeds", "linear-road/counts")
+    ts, seg, speed = lr.position_reports(SEED, **full)
+    records = lr.records(ts, seg, speed)
+    opts = lr.build_options(full["n_xways"])
+    n_seg = opts["num_buckets"]
+    opts["num_buckets"] = (n_seg, 1 << (n_seg - 1).bit_length())
+    fused = lr.toll_inputs_join(*prefixes).build(
+        device=device, job_id="toll-inputs", **opts)
+    opts["n_workers"] = 1
+    dist = _world_of_one(torch)
+    try:
+        sm = lr.toll_inputs_join(*prefixes).build(
+            device=device, job_id="toll-inputs", backend="shard_map",
+            **opts)
+        store = _lr_log(lr, records, prefixes)
+        with _Collectives(dist) as coll, _PairCheck(torch) as pairs:
+            ops.fold.launches = 0
+            report, got, wall = _drive(sm, store)
+            launches = ops.fold.launches
+        if got != want:
+            bad = sorted(k for k in set(got) | set(want)
+                         if got.get(k) != want.get(k))[:3]
+            raise AssertionError(f"shard_map join sinks differ from phase "
+                                 f"18's at {bad}")
+        if launches != report.folds or set(pairs.bases) != {0, 2}:
+            raise AssertionError(f"shard_map join: {launches} fused_fold "
+                                 f"launches for {report.folds} fold steps "
+                                 f"(per channel base {dict(pairs.bases)})")
+        if report.late_dropped:
+            raise AssertionError(f"{report.late_dropped} late pairs dropped")
+        side = sm.stages[0].sides[0].compiled
+        fside = fused.stages[0].sides[0].compiled
+        rows = _join_wire(torch, lr, ts, seg, speed, device)
+        minw = -(2 ** 31)
+        st = _step_times(torch, ops, side.step, rows, side.init_carry(),
+                         minw)
+        ft = _step_times(torch, ops, fside.step, rows, fside.init_carry(),
+                         minw)
+        partial = torch.zeros(tuple(side.init_carry().shape),
+                              dtype=torch.float32, device=device)
+        stats = torch.zeros(3, dtype=torch.int32, device=device)
+        rs_ms = _median_ms(lambda: side.axis.psum_scatter(partial[:, 0:2]))
+        ar_ms = _median_ms(lambda: side.axis.psum(stats))
+        cut = lr.records(*lr.position_reports(
+            SEED, **dict(full, minutes=AB_MINUTES)))
+
+        def drive(program):
+            def run():
+                rep, sinks, secs = _drive(program,
+                                          _lr_log(lr, cut, prefixes))
+                return rep.records_in, sinks, secs
+            return run
+        rates, walls = _interleaved({"fused": drive(fused),
+                                     "shard_map": drive(sm)})
+    finally:
+        dist.destroy_process_group()
+    print(f"shard_map toll_inputs_join (world of 1, NCCL): "
+          f"{report.records_in} records in {wall:.3f} s = "
+          f"{report.records_in / wall:.0f} records/s (host wall); "
+          f"{report.batches} micro-batches, {launches} fused_fold launches = "
+          f"{report.folds} fold steps ({pairs.bases[0]} at channel base 0, "
+          f"{pairs.bases[2]} at base 2; the first {pairs.checked[0]} + "
+          f"{pairs.checked[2]} left the other pair untouched); {len(got)} "
+          f"windows == phase 18's fused run; collectives {coll.counts}",
+          flush=True)
+    print(f"shard_map join step at the main shape ({tuple(rows.shape)} "
+          f"wire, carry {tuple(side.init_carry().shape)}): shard_map "
+          f"{_times_text(st)}; fused {_times_text(ft)}; the collectives "
+          f"add {st['ms'] - ft['ms']:.4f} ms a step (events): the pair's "
+          f"reduce-scatter {rs_ms:.4f} ms, the stats all_reduce "
+          f"{ar_ms:.4f} ms alone", flush=True)
+    print(f"toll_inputs_join over {AB_MINUTES} minutes ({2 * len(cut)} "
+          f"records), back to back: {_ab_text(rates, walls)}", flush=True)
+
+
+def phase_shard_map_service(torch, ops, lr, device, want) -> None:
+    """Phase 27b: phase 16's three tenants on one Linear Road ingest under
+    ``backend="shard_map"`` in a world of one NCCL rank: every job PARKED
+    after the log drains, two more minutes appended, cold restores, every
+    tenant's sinks equal phase 16's (``want``), and fused_fold launches
+    (counts set to 0 just before) equal the fold steps.  Then a fused and
+    a ``shard_map`` service drive the first ``AB_MINUTES`` of the log to
+    DONE back to back (``AB_ORDER``), with equal sinks, for their
+    tenant-records/s."""
+    from repro_torch.core import MemoryStore, MetadataStore
+    from repro_torch.service import JobServer, ParkPolicy
+    from repro_torch.streaming import write_event_log
+
+    full = lr.FULL
+    prefix = "linear-road/reports"
+    ts, seg, speed = lr.position_reports(SEED, **full)
+    ts2, seg2, speed2 = lr.position_reports(
+        SEED + 16, **dict(full, minutes=SERVICE_APPEND_MINUTES))
+    ts2 = ts2 + full["minutes"] * 60.0
+    first = lr.records(ts, seg, speed)
+    second = lr.records(ts2, seg2, speed2)
+    store = _segment_counting_store(MemoryStore, prefix + "/")
+    write_event_log(store, prefix, first, segment_records=lr.BATCH_RECORDS)
+    dist = _world_of_one(torch)
+    try:
+        with _Collectives(dist) as coll:
+            programs = service_programs(lr, full["n_xways"], device,
+                                        backend="shard_map", n_workers=1)
+            server = JobServer(store, MetadataStore(),
+                               park_policy=ParkPolicy(idle_seconds=0.0))
+            for tenant, program in programs.items():
+                server.add_tenant(tenant)
+                server.submit(tenant, program, source_prefix=prefix)
+            ops.fold.launches = 0
+            t0 = time.perf_counter()
+            while server.step():
+                pass
+            wall1 = time.perf_counter() - t0
+            parked = {jid: j.state for jid, j in server.jobs.items()}
+            write_event_log(store, prefix, second,
+                            segment_records=lr.BATCH_RECORDS)
+            t0 = time.perf_counter()
+            final = server.run_until_complete()
+            torch.cuda.synchronize()
+            wall2 = time.perf_counter() - t0
+            launches = ops.fold.launches
+        cut = lr.records(*lr.position_reports(
+            SEED, **dict(full, minutes=AB_MINUTES)))
+
+        def drive(**build):
+            def run():
+                ab_store = MemoryStore()
+                write_event_log(ab_store, prefix, cut,
+                                segment_records=lr.BATCH_RECORDS)
+                ab = JobServer(ab_store, MetadataStore())
+                tenants = service_programs(lr, full["n_xways"], device,
+                                           **build)
+                for tenant, program in tenants.items():
+                    ab.add_tenant(tenant)
+                    ab.submit(tenant, program, source_prefix=prefix)
+                t0 = time.perf_counter()
+                states = ab.run_until_complete()
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+                if set(states.values()) != {"DONE"}:
+                    raise AssertionError(f"service drive: {states}")
+                return len(cut) * len(tenants), sorted(
+                    (m.key, ab_store.get(m.key))
+                    for m in ab_store.list_objects("tenants/")), secs
+            return run
+        rates, walls = _interleaved({
+            "fused": drive(),
+            "shard_map": drive(backend="shard_map", n_workers=1)})
+    finally:
+        dist.destroy_process_group()
+    jobs = server.jobs
+    folds = sum(j.report.folds for j in jobs.values())
+    if set(parked.values()) != {"PARKED"} or set(final.values()) != {"DONE"}:
+        raise AssertionError(f"shard_map service: {parked} after the drain, "
+                             f"{final} at the end: "
+                             f"{[j.error for j in jobs.values()]}")
+    if launches != folds:
+        raise AssertionError(f"shard_map service: {launches} fused_fold "
+                             f"launches for {folds} fold steps")
+    reads = store.segment_gets
+    if set(reads.values()) != {1}:
+        raise AssertionError(f"log segments read {dict(reads)}")
+    for tenant, program in programs.items():
+        ns = f"tenants/{tenant}/"
+        got = {m.key[len(ns):]: store.get(m.key)
+               for out in program.output_prefixes()
+               for m in store.list_objects(ns + out)}
+        if got != want[tenant]:
+            raise AssertionError(f"shard_map tenant {tenant}: sinks differ "
+                                 f"from phase 16's")
+    colds = sorted(t for j in jobs.values() for t in j.cold_start_latencies)
+    total = (len(first) + len(second)) * len(jobs)
+    rate = total / (wall1 + wall2)
+    print(f"shard_map service (world of 1, NCCL): {len(jobs)} tenants, "
+          f"{total} tenant-records in {wall1 + wall2:.3f} s = {rate:.0f} "
+          f"records/s (host wall); every job PARKED after the drain, "
+          f"{len(colds)} cold restores (p50 "
+          f"{1e3 * colds[len(colds) // 2]:.3f} ms), DONE; {launches} "
+          f"fused_fold launches = {folds} fold steps; each of {len(reads)} "
+          f"segments read once; every tenant's sinks == phase 16's; "
+          f"collectives {coll.counts}", flush=True)
+    print(f"service over {AB_MINUTES} minutes ({len(cut)} reports, 3 "
+          f"tenants), back to back: {_ab_text(rates, walls)}", flush=True)
+
+
+def _load_example(name: str):
+    """``examples_torch/<name>.py`` as a fresh module."""
+    import importlib.util
+    path = ROOT / "examples_torch" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(f"_example_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_examples(torch, ops, hc, fa) -> dict:
+    """Phase 27c: each of the port's six examples' ``main()`` on the card
+    at its CI cap, making its reference counterpart's assertions; the
+    kernels each launched (counts set to 0 just before it, read just
+    after; ``EXAMPLE_KERNELS`` must be among them) and its host wall.
+    Returns the walls."""
+    import os
+    counters = {"fused_fold": ops.fold, "hash_combine": hc.combine,
+                "flash_attention_fwd": fa.attention,
+                "decode_cluster": fa.decode_attention}
+    saved = {k: os.environ.get(k) for k in EXAMPLE_ENV}
+    os.environ.update(EXAMPLE_ENV)
+    walls = {}
+    try:
+        for name, argv in EXAMPLES.items():
+            mod = _load_example(name)
+            for c in counters.values():
+                c.launches = 0
+            t0 = time.perf_counter()
+            mod.main(argv)
+            torch.cuda.synchronize()
+            walls[name] = time.perf_counter() - t0
+            launched = {k: c.launches for k, c in counters.items()
+                        if c.launches}
+            missing = [k for k in EXAMPLE_KERNELS[name] if k not in launched]
+            if missing:
+                raise AssertionError(f"example {name}: {missing} never "
+                                     f"launched ({launched})")
+            print(f"example {name} {' '.join(argv)}: main() on the card in "
+                  f"{walls[name]:.3f} s (host wall); launches {launched}",
+                  flush=True)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return walls
+
+
 def main(argv=None) -> int:
     global SEED
     parser = argparse.ArgumentParser(description="Build, check and drive "
@@ -5551,9 +5904,9 @@ def main(argv=None) -> int:
     mark("12-14")
 
     phase_batch_job(torch, hc, device)
-    phase_job_service(torch, ops, lr, device)
+    _, service_sinks = phase_job_service(torch, ops, lr, device)
     phase_congestion_chain(torch, ops, lr, device)
-    phase_toll_join(torch, ops, lr, device)
+    _, join_sinks = phase_toll_join(torch, ops, lr, device)
     torch.cuda.empty_cache()
     mark("15-18")
     phase_segment_median(torch, ops, lr)
@@ -5599,6 +5952,14 @@ def main(argv=None) -> int:
         del params
         torch.cuda.empty_cache()
     mark("26")
+
+    phase_shard_map_join(torch, ops, lr, device, join_sinks)
+    phase_shard_map_service(torch, ops, lr, device, service_sinks)
+    del join_sinks, service_sinks
+    torch.cuda.empty_cache()
+    phase_examples(torch, ops, hc, fa)
+    torch.cuda.empty_cache()
+    mark("27")
 
     kernel = {"name": "fused_fold", "route": "cuda",
               "source": "src/repro_torch/kernels/fused_fold/csrc/"

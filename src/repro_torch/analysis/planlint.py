@@ -43,13 +43,13 @@ place, so there is no donation to misuse.
 
 CLI (the reference's ``main``)::
 
-    PYTHONPATH=src python -m repro_torch.analysis.planlint my_jobs.py dir/
+    PYTHONPATH=src python -m repro_torch.analysis.planlint [my_jobs.py dir/]
 
 builds the programs of every module named (or every ``*.py`` in a
-directory named) that exposes ``build_pipelines() -> {name:
-BuiltPipeline}`` — port pipelines, built with the device the module
-chooses — and checks each; error-level findings fail the run.  It has no
-default path: the reference's ``examples/`` build reference pipelines.
+directory named; by default the port's examples, ``examples_torch``)
+that exposes ``build_pipelines() -> {name: BuiltPipeline}`` — port
+pipelines, built with the device the module chooses — and checks each;
+error-level findings fail the run.
 """
 
 from __future__ import annotations
@@ -343,18 +343,20 @@ def _load_module(path):
 
 
 def main(argv=None) -> int:
-    """``python -m repro_torch.analysis.planlint <files-or-dirs>`` — build
-    every named module's pipelines (the ``build_pipelines()`` convention)
-    and check them; 1 when any error-level finding remains, else 0."""
+    """``python -m repro_torch.analysis.planlint [files-or-dirs]`` — build
+    every named module's pipelines (the ``build_pipelines()`` convention;
+    ``examples_torch`` when none is named) and check them; 1 when any
+    error-level finding remains, else 0."""
     import argparse
     import pathlib
 
     ap = argparse.ArgumentParser(
         prog="python -m repro_torch.analysis.planlint",
         description="planlint over pipeline modules of the port")
-    ap.add_argument("paths", nargs="+",
+    ap.add_argument("paths", nargs="*", default=["examples_torch"],
                     help="modules (or directories of modules) exposing "
-                         "build_pipelines() -> {name: BuiltPipeline}")
+                         "build_pipelines() -> {name: BuiltPipeline} "
+                         "(default: examples_torch)")
     args = ap.parse_args(argv)
     files: list = []
     for raw in args.paths:

@@ -102,18 +102,16 @@ class SimulatedAxis:
         ``(W * n, ...)``."""
         return x.reshape((-1,) + tuple(x.shape[2:]))
 
-    def barrier(self) -> None:
-        """Nothing to wait for in one process."""
-
 
 class DistributedAxis:
     """One worker per rank of a ``torch.distributed`` process group.  Only
     ``all_to_all_single``, ``all_gather`` (list form) and ``all_reduce``
-    (sum; max for ``pmax``) are called, so NCCL (CUDA tensors) and gloo
-    (CPU tensors) both serve it; the reduce-scatter is an
-    ``all_to_all_single`` and a sum over the senders in rank order, the
-    same order under either backend.  Boolean tensors travel as
-    ``uint8``.  ``group=None`` is the default group."""
+    (sum; max for ``pmax``) are called — plus ``broadcast_object_list`` and
+    ``all_gather_object`` for host decisions (``agree``, ``gather``) — so
+    NCCL (CUDA tensors) and gloo (CPU tensors) both serve it; the
+    reduce-scatter is an ``all_to_all_single`` and a sum over the senders
+    in rank order, the same order under either backend.  Boolean tensors
+    travel as ``uint8``.  ``group=None`` is the default group."""
 
     simulated = False
 
@@ -205,12 +203,31 @@ class DistributedAxis:
         self._dist.all_gather(parts, send, group=self.group)
         return torch.cat(parts).to(x.dtype)
 
-    def barrier(self) -> None:
-        """Wait until every rank got here (a one-element ``all_reduce``)."""
-        backend = self._dist.get_backend(self.group)
-        dev = (torch.device("cuda", torch.cuda.current_device())
-               if backend == "nccl" else torch.device("cpu"))
-        self._dist.all_reduce(torch.zeros(1, device=dev), group=self.group)
+    def _device(self) -> torch.device:
+        """Where this group's collectives stage tensors: the current card
+        under NCCL, the host under gloo."""
+        if self._dist.get_backend(self.group) == "nccl":
+            return torch.device("cuda", torch.cuda.current_device())
+        return torch.device("cpu")
+
+    def agree(self, obj):
+        """Rank 0's ``obj`` (any picklable value: a decision, a record, an
+        exception) on every rank — ``broadcast_object_list``.  The host
+        decisions that issue or skip a collective are made once, on rank 0,
+        and take effect everywhere through this."""
+        box = [obj if self.rank == 0 else None]
+        src = (0 if self.group is None
+               else self._dist.get_global_rank(self.group, 0))
+        self._dist.broadcast_object_list(box, src=src, group=self.group,
+                                         device=self._device())
+        return box[0]
+
+    def gather(self, obj) -> list:
+        """Every rank's picklable ``obj``, in rank order, on every rank
+        (``all_gather_object``)."""
+        out = [None] * self.size
+        self._dist.all_gather_object(out, obj, group=self.group)
+        return out
 
 
 def process_group(n_workers: int, group=None, device=None):

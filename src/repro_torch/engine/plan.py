@@ -501,7 +501,10 @@ class CompiledStreamAggregate:
     views in one launch; ``"shard_map"`` this rank's ``(per, 4|5)`` shard
     of the flat wire into its ``(n_slots * carry_buckets / W, C)`` share
     of the carry, through a partial of the whole carry (zeros, the sum's
-    identity), one reduce-scatter and a sum of the stats over the ranks.
+    identity), one reduce-scatter of the plan's own ``[sum, count]``
+    channel pair (a join's other side keeps its pair untouched) and a sum
+    of the stats over the ranks.  Every rank must call ``step`` for the
+    same folds in the same order, rows or none: each is two collectives.
 
     The carry is updated **in place**: ``step``, ``clear_slot`` and the
     cell ops write into the tensor they are given and return it.  That
@@ -554,7 +557,11 @@ class CompiledStreamAggregate:
         partial = torch.zeros((self._rows, carry.shape[-1]),
                               dtype=torch.float32, device=self.device)
         partial, stats = self._fold(rows, partial, *args)
-        carry += self.axis.psum_scatter(partial)[0]
+        # only this plan's [sum, count] pair crosses the ranks and lands in
+        # the carry: a join's other side keeps its pair untouched
+        pair = slice(self.plan.reduce.channel_base,
+                     self.plan.reduce.channel_base + 2)
+        carry[:, pair] += self.axis.psum_scatter(partial[:, pair])[0]
         return carry, self.axis.psum(stats)
 
     # -- the carry as one flat slab ------------------------------------------

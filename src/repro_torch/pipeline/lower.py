@@ -58,9 +58,10 @@ the port's ``"fused"`` default, ``"vmap"`` (simulated workers in the
 reference's per-worker layouts) or ``"shard_map"`` (one
 ``torch.distributed`` rank a worker, ``group=`` or the default group).
 Under the last two an aggregate stage's ``num_buckets`` must divide by
-``n_workers``, as the reference requires; a join under ``"shard_map"``
-is not ported yet and raises ``NotImplementedError`` naming the
-``ROADMAP.md`` item — nothing falls back.
+``n_workers``, as the reference requires (a join's larger side, whose
+key space sizes the shared carry).  A join under ``"shard_map"`` runs on
+every rank over both logs, each rank folding its share of every
+micro-batch into its share of the one shared carry.
 """
 
 from __future__ import annotations
@@ -71,7 +72,7 @@ from dataclasses import dataclass
 from typing import Any, Callable
 
 from ..engine.plan import (BACKEND, ExecutionPlan, KeySpace, ReduceSpec,
-                           WindowSpec, not_ported)
+                           WindowSpec)
 from ..engine.stages import SEGMENT_REDUCE_KINDS
 from ..streaming.sessions import SessionTracker
 from ..streaming.state import WindowTracker
@@ -1025,9 +1026,6 @@ def build_pipeline(p: Pipeline, *, num_buckets=128, n_workers: int = 8,
             raise PipelineError(
                 "hashed joins need symmetric num_buckets: both sides must "
                 "hash keys into the same bucket space to match")
-        if backend == "shard_map":
-            raise not_ported("a windowed join under backend='shard_map'",
-                             "Queue A #11")
         if backend != BACKEND and num_buckets % n_workers != 0:
             raise PipelineError("num_buckets must divide by n_workers so "
                                 "window slices stay aligned to the "

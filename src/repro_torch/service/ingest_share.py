@@ -87,14 +87,22 @@ class SharedIngest:
         self.subscribers: dict[str, "SubscriberSource"] = {}
 
     # -- the one physical read ----------------------------------------------
-    def pump(self) -> int:
+    def pump(self, upto: int | None = None) -> int:
         """Materialize the log's unread tail onto the topic — the only
         place the physical log is ever read, however many jobs subscribe.
         Records are routed to partitions by record key (stable FNV-1a, so
         a crashed server re-materializes the identical layout) and carry
-        their global ``seq``.  Returns new records appended."""
+        their global ``seq``.  Returns new records appended.
+
+        ``upto`` stops at that many materialized records: a ``shard_map``
+        rank materializes what rank 0 read (``JobServer._pump``), so every
+        rank's topic holds the same records even while producers append,
+        and raises if its own read of the log comes up short."""
         n = 0
-        for rec in self.source.events_from(self.pumped):
+        tail = self.source.events_from(self.pumped)
+        if upto is not None:
+            tail = islice(tail, max(0, upto - self.pumped))
+        for rec in tail:
             self.bus.produce(self.topic,
                              _record_event(self.source_id, rec,
                                            self.pumped + n),
@@ -102,6 +110,9 @@ class SharedIngest:
             n += 1
         self.pumped += n
         self.pumps += 1
+        if upto is not None and self.pumped < upto:
+            raise ValueError(f"{self.prefix}: this rank read {self.pumped} "
+                             f"records of the log, rank 0 read {upto}")
         return n
 
     # -- subscriber fan-out --------------------------------------------------

@@ -14,6 +14,15 @@ runs (the build-time check only sees one program): every job's
 tenant-qualified output prefixes are claimed in the record, and a new
 job whose prefixes overlap any claim on the same shared store is
 rejected with ``PipelineError`` before it can write a byte.
+
+Under ``"shard_map"`` every rank runs a job server over the same store,
+tenants and submissions, each with its own ``MetadataStore``.  A second
+rank registering the job again would be refused as a duplicate, so the
+registry has one writer: rank 0 applies ``register``, ``update`` and
+``bump``, and every other rank installs rank 0's resulting record (its
+error, if the write was refused) from one ``agree`` — so each rank holds
+one record a job, equal to rank 0's, and ``resume=True`` re-attaches on
+every rank.
 """
 
 from __future__ import annotations
@@ -32,6 +41,29 @@ class JobRegistry:
 
     def __init__(self, meta: MetadataStore) -> None:
         self.meta = meta
+        self.axis = None        # the shard_map ranks' worker axis, or None
+
+    def _written(self, job_id: str, write):
+        """Apply ``write()`` (it returns a value or raises) — on rank 0
+        alone under ``"shard_map"``, whose record, job index, result or
+        error every rank then takes, after that one exchange."""
+        if self.axis is None:
+            return write()
+        out = err = rec = ids = None
+        if self.axis.rank == 0:
+            try:
+                out = write()
+            except Exception as exc:   # the refusal, raised on every rank
+                err = exc
+            rec, ids = self.meta.hgetall(job_record_key(job_id)), self.jobs()
+        rec, ids, out, err = self.axis.agree((rec, ids, out, err))
+        if err is not None:
+            raise err
+        if self.axis.rank != 0:
+            self.meta.set(job_index_key(), ids)
+            for name, value in rec.items():
+                self.meta.hset(job_record_key(job_id), name, value)
+        return out
 
     def jobs(self) -> list[str]:
         return list(self.meta.get(job_index_key(), []))
@@ -65,6 +97,11 @@ class JobRegistry:
         rejected, provided the tenant matches — the crash-recovery path.
         Returns True if a fresh record was created, False on re-attach.
         """
+        return self._written(job_id, lambda: self._register(
+            job_id, tenant, prefixes, resume))
+
+    def _register(self, job_id: str, tenant: str, prefixes,
+                  resume: bool) -> bool:
         ids = self.jobs()
         normed = [p.rstrip("/") + "/" for p in prefixes]
         if job_id in ids:
@@ -90,13 +127,16 @@ class JobRegistry:
 
     def update(self, job_id: str, **fields: Any) -> None:
         key = job_record_key(job_id)
-        for name, value in fields.items():
-            self.meta.hset(key, name, value)
+
+        def write():
+            for name, value in fields.items():
+                self.meta.hset(key, name, value)
+        self._written(job_id, write)
 
     def bump(self, job_id: str, field: str, amount: float = 1) -> None:
         key = job_record_key(job_id)
-        self.meta.hset(key, field,
-                       self.meta.hget(key, field, 0) + amount)
+        self._written(job_id, lambda: self.meta.hset(
+            key, field, self.meta.hget(key, field, 0) + amount))
 
     def state(self, job_id: str) -> str:
         return self.record(job_id)["state"]

@@ -59,6 +59,19 @@ a launch-configuration error).  A sticky device fault (an illegal
 address) or one that surfaces later at a synchronisation (a torch
 ``RuntimeError``) is not contained per job: it leaves the CUDA context
 unusable for every tenant on the card.
+
+Under ``"shard_map"`` the server is one of the world's ranks: each rank
+runs its own ``JobServer`` over the same store, tenants and submissions,
+making the same calls in the same order, and each job's coordinator
+folds the rank's share of every micro-batch.  Every decision that issues
+or skips a collective is agreed before it takes effect: rank 0 decides
+what rests on its wall clock or its reads (park, the ingest's tail) and
+broadcasts it; the compute quota is an all-gather of its
+inputs (every rank's seconds), summed the same way on each rank; a store
+error fails the job at the same batch on every rank (the coordinator's
+write barrier); and the registry has one writer, rank 0.  A kernel error
+raised on one rank alone is not contained: the other ranks would wait in
+a collective, as they would for a sticky device fault.
 """
 
 from __future__ import annotations
@@ -74,7 +87,6 @@ from ..core.events import (TOPIC_JOB_LIFECYCLE, EventBus,
                            job_lifecycle_event)
 from ..core.metadata import MetadataStore
 from ..core.storage import ObjectStore, StorageError
-from ..engine.plan import not_ported
 from ..kernels._build import KernelError
 from ..streaming.coordinator import (Prefetcher, RunOptions,
                                      StreamingCoordinator, StreamReport,
@@ -190,6 +202,9 @@ class JobServer:
         self.tenants: dict[str, Tenant] = {}
         self.ingests: dict[str, SharedIngest] = {}
         self.jobs: dict[str, _Job] = {}
+        # the worker axis of the server's shard_map programs (None: one
+        # process decides alone)
+        self._axis = None
 
     # -- tenancy / ingest setup ---------------------------------------------
     def add_tenant(self, name: str, quota_bytes: int | None = None,
@@ -239,9 +254,7 @@ class JobServer:
         """
         if tenant not in self.tenants:
             raise KeyError(f"unknown tenant {tenant!r}; add_tenant first")
-        if program.backend == "shard_map":
-            raise not_ported("the job service under backend='shard_map'",
-                             "Queue A #11")
+        self._join_ranks(program)
         bad = errors(program.check())
         if bad:
             raise PlanRejected(bad)
@@ -267,6 +280,41 @@ class JobServer:
         else:
             self._transition(job, JobStatus.PENDING, verb="reattached")
         return job.job_id
+
+    def _join_ranks(self, program) -> None:
+        """Under ``"shard_map"`` this server is one of the world's ranks,
+        each running the same calls over the same store: from the first
+        such program on, every decision that issues or skips a collective
+        goes through the programs' worker axis, and the registry's records
+        are rank 0's (``JobRegistry.axis``).  A server runs ``shard_map``
+        programs over one process group or none."""
+        if program.backend != "shard_map":
+            if self._axis is not None:
+                raise ValueError("a JobServer over shard_map ranks runs "
+                                 "shard_map programs only")
+            return
+        axis = program.stages[0].sides[0].compiled.axis
+        if self._axis is None and self.jobs:
+            raise ValueError("a JobServer that already runs single-process "
+                             "programs cannot take a shard_map one: every "
+                             "rank would write their sinks")
+        if self._axis is not None and axis.group is not self._axis.group:
+            raise ValueError("a JobServer runs shard_map programs over one "
+                             "process group")
+        self._axis = self.registry.axis = axis
+
+    def _pump(self, ingest: SharedIngest) -> int:
+        """Materialize an ingest's unread tail.  Under ``"shard_map"``
+        rank 0 reads the log first and every other rank materializes the
+        same number of records, so every rank's subscribers replay the
+        same batches even while producers append."""
+        if self._axis is None:
+            return ingest.pump()
+        n = ingest.pump() if self._axis.rank == 0 else 0
+        upto = self._axis.agree(ingest.pumped)
+        if self._axis.rank != 0:
+            n = ingest.pump(upto=upto)
+        return n
 
     def pause(self, job_id: str) -> None:
         """Park immediately on explicit request; only resume() wakes it
@@ -336,7 +384,7 @@ class JobServer:
         (pumped + folded) — 0 means quiescent."""
         moved = 0
         for ingest in self.ingests.values():
-            moved += ingest.pump()
+            moved += self._pump(ingest)
         runnable: list[_Job] = []
         for job in list(self.jobs.values()):
             if job.state == JobStatus.PARKED \
@@ -375,7 +423,7 @@ class JobServer:
         the sink bytes now match a standalone flushed run's exactly."""
         job = self._job(job_id)
         self._check_live(job, "finish")
-        job.ingest.pump()
+        self._pump(job.ingest)
         if job.coord is None:
             self._restore(job, verb="restored")
         self._drive(job, park_when_idle=False)
@@ -458,8 +506,12 @@ class JobServer:
                 now = time.monotonic()
                 if job.idle_since is None:
                     job.idle_since = now
-                if now - job.idle_since >= policy.idle_seconds \
-                        and job.state == JobStatus.RUNNING:
+                idle = (now - job.idle_since >= policy.idle_seconds
+                        and job.state == JobStatus.RUNNING)
+                if self._axis is not None:
+                    # wall clocks differ across ranks: rank 0's decides
+                    idle = self._axis.agree(idle)
+                if idle:
                     self._park(job)
             return 0
         job.idle_since = None
@@ -546,6 +598,10 @@ class JobServer:
             return True
         used = sum(j.meter.pool_seconds for j in self.jobs.values()
                    if j.tenant.name == job.tenant.name)
+        if self._axis is not None:
+            # the tenant's bill is every rank's seconds, summed in rank
+            # order on each rank: every rank takes the same verdict
+            used = sum(self._axis.gather(used))
         if used <= quota:
             return True
         self._fail(job, ComputeQuotaExceeded(

@@ -11,6 +11,16 @@ quota.  Two tenants running the *same* program (same job id, same sink
 prefix) therefore never collide in the store, and a runaway job fails
 with :class:`~repro_torch.core.storage.QuotaExceeded` instead of filling the
 bucket.
+
+Under ``"shard_map"`` each rank holds its own view of the tenant's
+namespace, but only rank 0 writes sinks and checkpoints, so only rank 0's
+view counts bytes against ``quota_bytes``; its refusal reaches every rank
+at the batch's write barrier, and the job fails at that batch on each.
+Each rank's ``ComputeMeter`` counts the seconds its own rank spent in its
+folds (its share of every micro-batch and the collectives' waits); the
+tenant's ``quota_pool_seconds`` is held against the sum over the ranks,
+which every rank forms the same way, and ``status()`` reports the calling
+rank's own meter.
 """
 
 from __future__ import annotations

@@ -51,7 +51,12 @@ rank runs this coordinator over the same source and folds its own
 every rank, so every rank emits the same records, and only rank 0
 writes them (and the carry checkpoints) to the store, so exactly-once
 holds; each rank records the checkpoint's metadata, which is the same on
-every rank.
+every rank.  A store error of rank 0's is raised on every rank at the
+batch's write barrier (``_agree_writes``, before any checkpoint moves
+past it), so every rank stops at the same batch.  Every rank emits the
+same windows, so every rank knows the batches in which rank 0 wrote (a
+window, a checkpoint): only those hold the barrier, and a batch that
+writes nothing holds no host sync.
 
 Checkpoints keep the reference's format byte for byte: an npz of
 ``leaf{i}`` arrays for the tuple of stage carries under
@@ -99,7 +104,7 @@ from ..core.autoscaler import AutoscalerConfig, ServerlessPool
 from ..core.events import (EventBus, TOPIC_STREAM_BATCH, TOPIC_STREAM_WINDOW,
                            batch_event, window_event)
 from ..core.metadata import MetadataStore
-from ..core.storage import ObjectStore
+from ..core.storage import ObjectStore, StorageError
 from ..core.workers import _encode_records
 from ..engine.stages import fold_key24, host_bucket
 from .source import MicroBatch
@@ -112,6 +117,8 @@ from .windows import Window
 LANE_SHARED = {
     "_pending_stats": ("driver", "barrier"),   # deferred fold counters
     "_pending_puts": ("driver", "barrier"),    # staged sink writes
+    "_write_error": ("driver", "barrier"),     # rank 0's held store error
+    "_write_due": ("driver", "barrier"),       # rank 0 wrote this batch
     "tables": ("driver",),                     # key-id dictionaries
     "tracker": ("driver", "barrier"),          # ring + watermark state
     "carry": ("driver", "barrier"),            # device fold state
@@ -539,6 +546,11 @@ class StreamingCoordinator:
         self._pending_stats: list[tuple[int, torch.Tensor]] = []
         self._pending_puts: list[tuple[str, bytes, float, float, int,
                                        float]] = []
+        # under "shard_map": a store error of rank 0's, held until the
+        # write barrier (_agree_writes) of the batch, which a batch holds
+        # only where rank 0 wrote in it (known alike on every rank)
+        self._write_error: StorageError | None = None
+        self._write_due = False
 
     # -- construction ----------------------------------------------------------
     def _wire_rows(self, si: int) -> int:
@@ -735,19 +747,25 @@ class StreamingCoordinator:
         overwrite.  With sink batching on, the write stages on the drain
         lane; ``_flush_sinks`` writes the sweep's windows in one
         ``put_many``."""
-        if not self._writer:
+        self._write_due = True  # on every rank: each emits this window
+        if not self._writer or self._write_error is not None:
             return              # rank 0 writes every rank's (equal) windows
         blob = _encode_records(records)
         if t_close is None:
             t_close = time.perf_counter()
-        if out_key in self._persisted and self.store.get(out_key) == blob:
-            report.writes_skipped += 1
+        try:
+            if out_key in self._persisted and \
+                    self.store.get(out_key) == blob:
+                report.writes_skipped += 1
+                return
+            if self.opts.sink_batching:
+                self._pending_puts.append((out_key, blob, start, end,
+                                           len(records), t_close))
+                return
+            self.store.put(out_key, blob)
+        except StorageError as exc:
+            self._hold(exc)
             return
-        if self.opts.sink_batching:
-            self._pending_puts.append((out_key, blob, start, end,
-                                       len(records), t_close))
-            return
-        self.store.put(out_key, blob)
         report.emit_latencies.append(time.perf_counter() - t_close)
         self.bus.produce(TOPIC_STREAM_WINDOW,
                          window_event(self.prog.job_id, start, end,
@@ -761,7 +779,11 @@ class StreamingCoordinator:
         if not self._pending_puts:
             return
         pending, self._pending_puts = self._pending_puts, []
-        self.store.put_many([(key, blob) for key, blob, *_ in pending])
+        try:
+            self.store.put_many([(key, blob) for key, blob, *_ in pending])
+        except StorageError as exc:
+            self._hold(exc)
+            return
         t_emit = time.perf_counter()
         for key, blob, start, end, n_records, t_close in pending:
             report.emit_latencies.append(t_emit - t_close)
@@ -769,6 +791,32 @@ class StreamingCoordinator:
                              window_event(self.prog.job_id, start, end,
                                           n_records, key),
                              key=f"{self.prog.job_id}/{start}")
+
+    def _hold(self, exc: StorageError) -> None:
+        """A store error of the writer's.  In one process it raises at
+        once.  Under ``"shard_map"`` only rank 0 writes, so it alone sees
+        the error: it is held (rank 0 writes nothing more) until the
+        batch's write barrier, where every rank raises it together
+        (``_agree_writes``) — a rank that stopped mid-batch would leave
+        the others waiting in a collective."""
+        if self._axis.simulated:
+            raise exc
+        self._write_error = exc
+
+    def _agree_writes(self) -> None:
+        """The write barrier under ``"shard_map"``, in a batch in which
+        rank 0 wrote (``_write_due``, set alike on every rank): rank 0's
+        held store error, if any, raised on every rank (one ``agree``),
+        before any rank records a checkpoint past the refused write.  Rank
+        0 broadcasts after its writes, so no rank passes here before
+        them."""
+        if self._axis.simulated or not self._write_due:
+            return
+        self._write_due = False
+        exc = self._axis.agree(self._write_error)
+        self._write_error = None
+        if exc is not None:
+            raise exc
 
     def _aggregate_value(self, kind: str, total, count) -> Any:
         """``count`` → int, ``sum`` → float, ``mean`` → the float32
@@ -1089,11 +1137,16 @@ class StreamingCoordinator:
         leaves = [leaf.to("cpu", copy=True).numpy() for st in self.stages
                   for leaf in _carry_leaves(
                       st.compiled.checkpoint_carry(st.carry))]
-        if self._writer:
+        if self._writer and self._write_error is None:
             buf = io.BytesIO()
             np.savez(buf, **{f"leaf{i}": leaf
                              for i, leaf in enumerate(leaves)})
-            self.store.put(_carry_key(self.prog.job_id), buf.getvalue())
+            try:
+                self.store.put(_carry_key(self.prog.job_id), buf.getvalue())
+            except StorageError as exc:
+                self._hold(exc)
+        self._write_due = True          # every rank past the carry's write
+        self._agree_writes()
         self.meta.set(_state_key(self.prog.job_id), {
             "offset": self._records_consumed,
             "carry_shapes": [list(leaf.shape) for leaf in leaves],
@@ -1103,7 +1156,6 @@ class StreamingCoordinator:
                 "tables": [t.state_dict() for t in self._unique_tables(st)],
             } for st in self.stages],
         })
-        self._axis.barrier()    # every rank past the write before any reads
 
     def restore_state(self) -> int:
         """Load a prior run's checkpoint (this package's or the
@@ -1417,6 +1469,8 @@ class StreamingCoordinator:
         if self._ckpt_interval and \
                 (prep.index + 1) % self._ckpt_interval == 0:
             self.save_state()
+        else:
+            self._agree_writes()
         report.batch_latencies.append(time.perf_counter() - t0)
 
     def process_batch(self, batch: MicroBatch,
@@ -1439,6 +1493,7 @@ class StreamingCoordinator:
             self._finalize_ripe(report, si)
         self._drain_stats(report)
         self._flush_sinks(report)
+        self._agree_writes()
 
     def run_stream(self, source, *, announce: bool = True,
                    flush: bool = True) -> StreamReport:

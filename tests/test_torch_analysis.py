@@ -333,11 +333,13 @@ def _cli_lines(out, root):
     return [line.replace(str(root), "<root>") for line in out.splitlines()]
 
 
-def test_planlint_cli_on_a_temporary_module(tmp_path, capsys):
+def test_planlint_cli_on_a_temporary_module(tmp_path, capsys, monkeypatch):
     """The port's CLI on a module of port pipelines prints what the
     reference's prints on the same module built with its own pipelines,
     and exits 1 for the error-level PL005 finding; a module without
-    ``build_pipelines()`` is skipped; a clean one exits 0."""
+    ``build_pipelines()`` is skipped; a clean one exits 0.  With no path
+    it checks the port's examples (``examples_torch``), as the
+    reference's checks its ``examples``."""
     for pkg, extra in (("repro_torch", 'device="cpu"'),
                        ("repro", 'backend="pallas"')):
         d = tmp_path / pkg
@@ -358,8 +360,14 @@ def test_planlint_cli_on_a_temporary_module(tmp_path, capsys):
                                        extra='device="cpu"')
                      .replace('"jobs/out/"', '"more/"'))
     assert planlint.main([str(clean)]) == 0
-    with pytest.raises(SystemExit):
-        planlint.main([])                 # explicit paths only
+    capsys.readouterr()
+    monkeypatch.chdir(tmp_path)
+    (tmp_path / "examples_torch").mkdir()
+    (tmp_path / "examples_torch" / "jobs.py").write_text(
+        _PIPELINES.format(pkg="repro_torch", extra='device="cpu"'))
+    assert planlint.main([]) == 1
+    assert "examples_torch/jobs.py:clean: clean" in \
+        capsys.readouterr().out.splitlines()
 
 
 # -- core.shuffle -------------------------------------------------------------------

@@ -113,35 +113,65 @@ def test_unaligned_carry_takes_the_scalar_pair(cuda_device):
     assert torch.equal(flat[:1], head)        # the float before it untouched
 
 
+def _device_records_in(prof, label):
+    """The device records that the CUDA calls made inside the
+    ``record_function(label)`` ranges of ``prof`` queued, matched to those
+    calls by CUPTI correlation id (a record's timestamp may fall outside
+    the range of the call that queued it)."""
+    from torch.autograd import DeviceType
+    events = prof.profiler.kineto_results.events()
+    ranges = [(ev.start_ns(), ev.end_ns()) for ev in events
+              if ev.name() == label and ev.device_type() == DeviceType.CPU]
+    calls = {ev.correlation_id() for ev in events
+             if ev.device_type() == DeviceType.CPU
+             and ev.name().startswith("cu")
+             and any(lo <= ev.start_ns() <= hi for lo, hi in ranges)}
+    calls.discard(0)
+    return [ev.name() for ev in events
+            if ev.device_type() == DeviceType.CUDA
+            and ev.correlation_id() in calls]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind", FOLD_KINDS)
-def test_one_device_operation_a_fold(cuda_device, kind):
+def test_one_device_operation_a_fold(cuda_device):
     """Under torch.profiler, folds of every kind put one record on the
     device each — the kernel: no fill of the stats, no fill of the min /
-    max scratch, no second kernel.  Every record is the fold kernel and
-    there are no more records than folds (the profiler drops one now and
-    then, so fewer is allowed; the launch count shows each fold
-    launched)."""
-    from torch.profiler import DeviceType, ProfilerActivity, profile
+    max scratch, no second kernel.  Every kind's folds run in one profiler
+    session, warmed first (unlabelled folds of every kind at the session's
+    start: a session's first milliseconds have come back without device
+    records), each kind's in ``record_function`` ranges of its own, and
+    each fold must have exactly its one record."""
+    from torch.profiler import ProfilerActivity, profile, record_function
     rng = np.random.default_rng(67)
     rows = torch.from_numpy(_rows(rng, 1 << 16, host_wire=False,
                                   keymax=NB)).to(cuda_device)
-    carry = torch.from_numpy(_carry(rng, N_SLOTS * NB, 2,
-                                    kind)).to(cuda_device)
-    step = ops.make_fold_step(**_geometry(False, kind), device=cuda_device)
-    step(rows, carry, 2)
+    steps = {}
+    for kind in FOLD_KINDS:
+        carry = torch.from_numpy(_carry(rng, N_SLOTS * NB, 2,
+                                        kind)).to(cuda_device)
+        step = ops.make_fold_step(**_geometry(False, kind),
+                                  device=cuda_device)
+        steps[kind] = (step, carry)
+        step(rows, carry, 2)
     torch.cuda.synchronize()
     folds = 5
     before = ops.fold.launches
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(folds):
-            step(rows, carry, 2)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for step, carry in steps.values():
+            for _ in range(folds):
+                step(rows, carry, 2)
         torch.cuda.synchronize()
-    assert ops.fold.launches == before + folds
-    records = [ev.name for ev in prof.events()
-               if ev.device_type == DeviceType.CUDA]
-    assert folds - 1 <= len(records) <= folds, records
-    assert all("fold_kernel" in name for name in records), records
+        for kind, (step, carry) in steps.items():
+            for _ in range(folds):
+                with record_function(f"fold {kind}"):
+                    step(rows, carry, 2)
+            torch.cuda.synchronize()
+    assert ops.fold.launches == before + 2 * folds * len(steps)
+    for kind in steps:
+        records = _device_records_in(prof, f"fold {kind}")
+        assert len(records) == folds, (kind, records)
+        assert all("fold_kernel" in name for name in records), records
 
 
 @pytest.mark.cuda

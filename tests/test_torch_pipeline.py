@@ -227,9 +227,10 @@ def test_n_workers_does_not_shape_the_fold(fanout, n_workers):
 def test_unported_pipeline_shapes_raise():
     """Every pipeline shape lowers — joins, tee and chains past a reduce
     to stage DAGs (``test_torch_dag.py``, ``test_torch_join.py``), group
-    mode to its plans (``test_torch_group.py``); what is left unported is
-    a windowed join under the multi-process backend, and a reduce the
-    reference refuses raises its ``PipelineError``."""
+    mode to its plans (``test_torch_group.py``); a windowed join under the
+    multi-process backend lowers too and asks for its process group
+    (``test_torch_shard_map_join.py``), and a reduce the reference
+    refuses raises its ``PipelineError``."""
     src = Pipeline.from_source(records=_events(n=10))
     chain = src.key_by().window(10.0).reduce("sum")
     assert chain.join(chain).build(device="cpu").is_join
@@ -245,7 +246,7 @@ def test_unported_pipeline_shapes_raise():
     assert Pipeline.from_source(shards=[1]).map(lambda s: s).reduce(
         "max", mode="group", capacity=8).build(
             device="cpu", backend="vmap").batch_plan.axis.size == 8
-    with pytest.raises(NotImplementedError, match="Queue A #11"):
+    with pytest.raises(ValueError, match="initialised torch.distributed"):
         chain.join(chain).build(device="cpu", backend="shard_map",
                                 n_workers=2)
     with pytest.raises(PipelineError, match="n_slots"):
